@@ -4,11 +4,21 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives the main path
-(the lane-change game at T=10, 2048 instances in batches of 256, float32,
-tol 1e-4, the headline options) through the user entry points, certifies
-the result with the true KKT residual, times each kernel beside its bound,
-its plain version and a library call, and prints as its last line
+each against its plain PyTorch version on the card, drives two paths through
+the user entry points, each with every launch count set to 0 just before it
+and read just after:
+
+  * the lane-change main path (T=10, 2048 instances in batches of 256,
+    float32, tol 1e-4, the headline options);
+  * the random-QP path (n=100, m=100, 2048 instances in batches of 256,
+    float32, tol 1e-4, Mehrotra on tier "schur_pallas_gj", the QP suite's
+    defaults), and one batch on each of the tiers "schur_pallas" and
+    "schur_pallas_gjr";
+
+certifies each result with the true KKT residual, checks a few lanes
+against a float64 CPU reference, times each kernel beside its bound, its
+plain version and a library call, profiles one batch of each path, and
+prints as its last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -43,6 +53,37 @@ K1_REAL_TOL = 1e-3  # relative to max |x| on the lane-change Newton systems, f32
 K1_F64_TOL = 1e-10
 K1_RESIDUAL_TOL = 1e-4  # ‖Ax − r‖/‖r‖ in float32
 K2_TOL = 1e-6  # relative, x'/s'/y' (the kernel rounds as the plain version)
+
+QP_OPTIONS = dict(  # the QP suite's defaults (bench.py --suite qp)
+    tol=1e-4,
+    linear_solver="schur_pallas_gj",
+    algorithm="mehrotra",
+    refinement_steps=0,
+    max_outer_iters=25,
+    retry=0,
+    retry_max_outer_iters=8,
+    retry_linear_solver="schur_pallas",
+    polish=True,
+)
+QP_N = 100  # primals = inequalities
+QP_MIN_SUCCESS = 0.98  # about 1 draw in 256 is infeasible by construction
+# K4a and K5 round every product and difference as their plain version does:
+# any difference is a fault (measured 0 in both dtypes). The bound is on
+# max|kernel − plain| relative to max|plain| (x, and A⁻¹ for K5).
+GJ_TOL = 1e-6
+# K4b/K4c reduce in another order than the plain version, so the two differ
+# by up to cond(A)·ε·|x| (two backward-stable solves); the bound is on
+# max_i |x_kernel − x_plain|_i / (|x_plain|_i · κ₂(A_i)), i.e. about 100 ε.
+QR_TOL = {"float32": 1e-5, "float64": 2e-14}
+# That bound grows with κ and so holds little on the ill-conditioned saddle
+# and late-iterate systems. Householder QR is backward stable whatever κ:
+# each system's backward error ‖Ax−b‖∞/(‖A‖∞‖x‖∞ + ‖b‖∞) must stay within
+# 100 ε of its dtype (the plain version measures at most 5 ε on these cases).
+QR_BWD_TOL = {"float32": 100 * 2.0**-23, "float64": 100 * 2.0**-52}
+# Card (float32, kernels) against CPU (float64, plain versions) on 8 QP
+# lanes, relative to max|x|: at tol 1e-4 a solution is fixed only to about
+# cond·tol (measured up to 2.8e-3 between f32 and f64 over 32 CPU lanes).
+QP_REF_REL_TOL = 1e-2
 
 
 class PhaseFailed(Exception):
@@ -314,11 +355,13 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026):
     stats = batch_statistics(res)
     solved = res.status == SOLVED
     n_inst = batch * k_batches
+    certified = int((solved & (tk <= options.tol)).sum())
     stats.update(
         instances=n_inst,
+        certified=certified,
         frac_true_kkt_at_tol=float((tk <= options.tol).double().mean()),
         true_kkt_max_solved=float(tk[solved].max()) if bool(solved.any()) else float("nan"),
-        solves_per_s=n_inst / device_s,
+        certified_solves_per_s=certified / device_s,
         window_s_events=device_s,
         window_s_host=wall_s,
         launches=launches,
@@ -353,6 +396,320 @@ def phase_reference(options, stack, res):
         f"{ref.status.tolist()} vs {card[0].tolist()}, max|dx|={dx:.3e}")
     check(torch.equal(ref.status, card[0]), "reference: status differs")
     check(dx <= 1e-2, f"reference: x differs by {dx:.3e}")
+
+
+# -- K4a, K4b/K4c, K5 ------------------------------------------------------
+
+
+def spd_systems(Bn, n, dtype, device, seed):
+    """P·Pᵀ + n·I and a standard normal right side."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    P = rng.standard_normal((Bn, n, n))
+    arrs = (P @ P.transpose(0, 2, 1) + n * np.eye(n), rng.standard_normal((Bn, n)))
+    return tuple(torch.tensor(a, dtype=dtype, device=device) for a in arrs)
+
+
+def random_systems(Bn, n, dtype, device, seed):
+    """Standard normal plus n·I (the JAX kernel tests' construction)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((Bn, n, n)) + n * np.eye(n), rng.standard_normal((Bn, n)))
+    return tuple(torch.tensor(a, dtype=dtype, device=device) for a in arrs)
+
+
+def saddle_systems(Bn, n, dtype, device, seed):
+    """[[M, C], [Cᵀ, 1e-4·I]] with M SPD: interior-point saddle systems with
+    ~tol diagonal rows, which break pivot-free elimination but not QR."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    h = n // 2
+    P = rng.standard_normal((Bn, h, h))
+    M = P @ P.transpose(0, 2, 1) + np.eye(h)
+    C = rng.standard_normal((Bn, h, h))
+    low = np.broadcast_to(1e-4 * np.eye(h), (Bn, h, h))
+    A = np.concatenate([np.concatenate([M, C], 2),
+                        np.concatenate([C.transpose(0, 2, 1), low], 2)], 1)
+    arrs = (A, rng.standard_normal((Bn, n)))
+    return tuple(torch.tensor(a, dtype=dtype, device=device) for a in arrs)
+
+
+def qp_schur_system(mcp, thetas, x, y, s, tol):
+    """The n×n Schur system (A, b) that the QP path hands the dense solve at
+    the iterate (x, y, s): the Mehrotra predictor's right side, reg = tol."""
+    from mcp_tpu_torch.linalg import _schur_system
+    from mcp_tpu_torch.solver import _make_linearizer
+
+    g, h, Gx, Gy, Hx, _ = _make_linearizer(mcp, thetas, thetas.dtype)(x, y)
+    A, b, *_ = _schur_system(Gx, Gy, Hx, y, s, g, h - s, s * y, tol)
+    return A, b
+
+
+def backward_error(A, b, x):
+    """Max over systems of ‖Ax−b‖∞/(‖A‖∞‖x‖∞ + ‖b‖∞), in float64."""
+    A, b, x = A.double(), b.double(), x.double()
+    r = ((A @ x[..., None])[..., 0] - b).abs().amax(dim=1)
+    return float((r / (A.abs().sum(dim=2).amax(dim=1) * x.abs().amax(dim=1)
+                       + b.abs().amax(dim=1))).max())
+
+
+def dense_check(name, fn, plain, A, b):
+    """Kernel against plain on (A, b), with GJ_TOL for the Gauss–Jordan
+    kernels; the QR kernel is held to QR_TOL (condition-scaled) and to
+    QR_BWD_TOL (backward error, condition-free). Returns the max absolute
+    difference."""
+    import torch
+
+    from mcp_tpu_torch.kernels.linear_solve import gauss_solve
+
+    got = fn(A, b)
+    torch.cuda.synchronize()
+    want = plain(A, b)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    rel = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+              for g, w in zip(got, want))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    bwd_k, bwd_p = backward_error(A, b, got[0]), backward_error(A, b, want[0])
+    tag = str(A.dtype)[6:]
+    if fn is gauss_solve:
+        kappa = torch.linalg.cond(A.double())
+        per = (got[0] - want[0]).abs().amax(dim=1) / want[0].abs().amax(dim=1).clamp(min=1e-30)
+        measure, tol = float((per.double() / kappa).max()), QR_TOL[tag]
+        what = f"max_i |kernel-plain|_i/(|plain|_i·κ_i)={measure:.3e} (max κ {float(kappa.max()):.2e})"
+    else:
+        measure, tol = rel, GJ_TOL
+        what = f"max|kernel-plain|/max|plain|={rel:.3e}"
+    log(f"  {name}: {what} (tol {tol:g}); unscaled {rel:.3e}; backward error kernel "
+        f"{bwd_k:.3e} plain {bwd_p:.3e}"
+        + (f" (tol {QR_BWD_TOL[tag]:.3e})" if fn is gauss_solve else ""))
+    check(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: non-finite kernel output")
+    check(measure <= tol, f"{name}: kernel and plain differ by {measure:.3e} > {tol:g}")
+    if fn is gauss_solve:
+        check(bwd_k <= QR_BWD_TOL[tag],
+              f"{name}: kernel backward error {bwd_k:.3e} > {QR_BWD_TOL[tag]:.3e}")
+    return err
+
+
+def phase_dense_kernels(device):
+    """K4a, K4b/K4c and K5 against their plain versions on the card, in
+    float32 and float64: random SPD, random and saddle-point systems, the
+    real QP Schur systems at the cold start and at the returned (late)
+    Mehrotra iterate, and a zero pivot. Returns (cold-start f32 Schur
+    system, {kernel: max abs error on the real f32 systems})."""
+    import torch
+
+    from mcp_tpu_torch import SolverOptions, solve_batch
+    from mcp_tpu_torch.bench import qp
+    from mcp_tpu_torch.kernels import linear_solve as L
+
+    f32, f64 = torch.float32, torch.float64
+    gj = ("gj_solve", L.gj_solve, L.gj_solve_plain)
+    gji = ("gji_solve", L.gji_solve, L.gji_solve_plain)
+    qr = ("gauss_solve", L.gauss_solve, L.qr_solve_plain)
+    for dtype in (f32, f64):
+        tag = str(dtype)[6:]
+        spd = spd_systems(B, QP_N, dtype, device, 21)
+        for name, fn, plain in (gj, gji, qr):
+            dense_check(f"{name} SPD (256,100) {tag}", fn, plain, *spd)
+        for what, systems in (
+            ("random (256,100)", random_systems(B, QP_N, dtype, device, 22)),
+            ("saddle (256,12)", saddle_systems(B, 12, dtype, device, 23)),
+            ("saddle (256,100)", saddle_systems(B, QP_N, dtype, device, 26)),
+            ("random (5,10)", random_systems(5, 10, dtype, device, 24)),
+        ):
+            dense_check(f"gauss_solve {what} {tag}", L.gauss_solve, L.qr_solve_plain, *systems)
+
+    problem = qp.generate_test_problem(num_primals=QP_N, num_inequalities=QP_N, device=device)
+    mcp = problem.mcp
+    gen = torch.Generator().manual_seed(31)
+    th = qp.generate_parameter_batch(gen, B, num_primals=QP_N, num_inequalities=QP_N,
+                                     dtype=f32, device=device)
+    late = solve_batch(mcp, th, options=SolverOptions(**QP_OPTIONS))
+    errs = {}
+    cold = None
+    for dtype in (f32, f64):
+        tag = str(dtype)[6:]
+        t = th.to(dtype)
+        zeros = torch.zeros((B, QP_N), dtype=dtype, device=device)
+        ones = torch.ones((B, QP_N), dtype=dtype, device=device)
+        systems = (
+            ("cold start", qp_schur_system(mcp, t, zeros, ones, ones, QP_OPTIONS["tol"])),
+            ("late Mehrotra iterate", qp_schur_system(
+                mcp, t, late.x.to(dtype), late.y.to(dtype), late.s.to(dtype),
+                QP_OPTIONS["tol"])),
+        )
+        if dtype == f32:
+            cold = systems[0][1]
+        for where, (A, b) in systems:
+            for name, fn, plain in (gj, gji, qr):
+                err = dense_check(f"{name} QP Schur, {where} (256,100) {tag}", fn, plain, A, b)
+                if dtype == f32:
+                    errs[name] = max(errs.get(name, 0.0), err)
+
+    # A zero pivot: system 2 has a zero first row and column. GJ gives huge
+    # finite values there (the 1e-30 pivot guard), QR inf/NaN; the other
+    # systems are untouched and agree with the plain version.
+    A, b = spd_systems(4, QP_N, f32, device, 25)
+    A[2, 0, :] = 0.0
+    A[2, :, 0] = 0.0
+    for name, fn, plain in (gj, gji, qr):
+        got, want = fn(A, b), plain(A, b)
+        torch.cuda.synchronize()
+        x, xp = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+        bad = (~torch.isfinite(x).all(dim=1)).tolist()
+        bad_p = (~torch.isfinite(xp).all(dim=1)).tolist()
+        big = float(x[2].abs().max())
+        others = float((x[[0, 1, 3]] - xp[[0, 1, 3]]).abs().max())
+        log(f"  {name} zero pivot: non-finite systems kernel={bad} plain={bad_p}, "
+            f"max|x| of system 2 {big:.3e}, other systems max|kernel-plain| {others:.3e}")
+        if fn is L.gauss_solve:
+            check(bad == [False, False, True, False] and bad_p == bad,
+                  f"{name} zero pivot: expected inf/NaN in system 2 only")
+        else:
+            check(not any(bad) and not any(bad_p) and big > 1e20,
+                  f"{name} zero pivot: expected huge finite values in system 2")
+        check(others <= 1e-3 * float(xp[[0, 1, 3]].abs().max()),
+              f"{name} zero pivot: the other systems changed")
+    return cold, errs
+
+
+# -- QP path ---------------------------------------------------------------
+
+
+def certify64(mcp, res, thetas):
+    """‖(g, h−s, s∘y)‖∞ per lane, recomputed in float64 at the returned
+    iterate (the solver's own residual is float32)."""
+    from mcp_tpu_torch.bench.harness import true_kkt_errors
+
+    res64 = res._replace(x=res.x.double(), y=res.y.double(), s=res.s.double())
+    return true_kkt_errors(mcp, res64, thetas.double())
+
+
+def phase_qp_path(device, batch=B, k_batches=K_BATCHES, seed=2027):
+    """The QP suite through the user entry points: one untimed warm batch,
+    then 8 fresh batches through solve_batches_streamed, CUDA-event timed,
+    with K4a's launch count set to 0 just before and read just after."""
+    import torch
+
+    from mcp_tpu_torch import (
+        SOLVED,
+        SolverOptions,
+        auto_tightening_rate,
+        batch_statistics,
+        solve_batch,
+        solve_batches_streamed,
+    )
+    from mcp_tpu_torch.bench import qp
+    from mcp_tpu_torch.kernels import linear_solve as L
+
+    problem = qp.generate_test_problem(num_primals=QP_N, num_inequalities=QP_N, device=device)
+    mcp = problem.mcp
+    options = SolverOptions(**QP_OPTIONS, tightening_rate=auto_tightening_rate(mcp))
+    gen = torch.Generator().manual_seed(seed)
+    draw = lambda: qp.generate_parameter_batch(
+        gen, batch, num_primals=QP_N, num_inequalities=QP_N, device=problem.device)
+    warm = draw()
+    stack = torch.stack([draw() for _ in range(k_batches)])
+    solve_batch(mcp, warm, options=options)  # warm batch, untimed
+    torch.cuda.synchronize()
+
+    L.gj_solve.launches = 0
+    t1 = time.perf_counter()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = solve_batches_streamed(mcp, stack, options=options)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t1
+    launches = L.gj_solve.launches
+    device_s = start.elapsed_time(end) / 1e3
+
+    tk = certify64(mcp, res, stack)
+    stats = batch_statistics(res)
+    solved = res.status == SOLVED
+    n_inst = batch * k_batches
+    certified = int((solved & (tk <= options.tol)).sum())
+    stats.update(
+        instances=n_inst,
+        certified=certified,
+        certified_solves_per_s=certified / device_s,
+        batch_latency_s=device_s / k_batches,
+        frac_true_kkt64_at_tol=float((tk <= options.tol).double().mean()),
+        true_kkt64_max_solved=float(tk[solved].max()) if bool(solved.any()) else float("nan"),
+        window_s_events=device_s,
+        window_s_host=wall_s,
+        gj_launches=launches,
+        tightening_rate=options.tightening_rate,
+    )
+    log("  QP path: " + json.dumps(stats))
+    check(tuple(res.x.shape) == (k_batches, batch, QP_N), "QP path: result shape")
+    check(bool(torch.isfinite(res.x[solved]).all()), "QP path: non-finite solved x")
+    check(stats["success_rate"] >= QP_MIN_SUCCESS,
+          f"QP path: success {stats['success_rate']} < {QP_MIN_SUCCESS}")
+    check(not bool((solved & (tk > options.tol)).any()),
+          "QP path: a SOLVED lane has float64 true KKT above tol")
+    check(launches > 0, "QP path: K4a (gj_solve) never launched")
+    return mcp, options, stack, res, launches
+
+
+def phase_qp_tiers(mcp, options, device, seed=2028):
+    """One batch of 256 fresh θ on tier "schur_pallas" (Mehrotra, K4b/K4c)
+    and one on "schur_pallas_gjr" with algorithm "ip" (K5), each with its
+    kernel's launch count set to 0 just before and read just after."""
+    import dataclasses
+
+    import torch
+
+    from mcp_tpu_torch import SOLVED, solve_batch
+    from mcp_tpu_torch.bench import qp
+    from mcp_tpu_torch.kernels import linear_solve as L
+
+    gen = torch.Generator().manual_seed(seed)
+    launches = {}
+    for tier, algorithm, wrapper in (("schur_pallas", "mehrotra", L.gauss_solve),
+                                     ("schur_pallas_gjr", "ip", L.gji_solve)):
+        th = qp.generate_parameter_batch(gen, B, num_primals=QP_N, num_inequalities=QP_N,
+                                         device=device)
+        opts = dataclasses.replace(options, linear_solver=tier, algorithm=algorithm)
+        wrapper.launches = 0
+        res = solve_batch(mcp, th, options=opts)
+        torch.cuda.synchronize()
+        launches[wrapper.__name__] = wrapper.launches
+        tk = certify64(mcp, res, th)
+        solved = res.status == SOLVED
+        log(f"  tier {tier} ({algorithm}): success {float(solved.double().mean())}, "
+            f"median iterations {float(res.outer_iters.double().median())}, "
+            f"{wrapper.__name__} launches {wrapper.launches}, max float64 true KKT of "
+            f"a SOLVED lane {float(tk[solved].max()) if bool(solved.any()) else float('nan'):.3e}")
+        check(wrapper.launches > 0, f"tier {tier}: {wrapper.__name__} never launched")
+        check(not bool((solved & (tk > options.tol)).any()),
+              f"tier {tier}: a SOLVED lane has float64 true KKT above tol")
+    return launches
+
+
+def phase_qp_reference(options, stack, res):
+    """Eight QP lanes solved on the CPU in float64 with the plain versions
+    must agree with the card's float32 kernels: same status, x within
+    QP_REF_REL_TOL of max|x|."""
+    import torch
+
+    from mcp_tpu_torch import solve_batch
+    from mcp_tpu_torch.bench import qp
+
+    cpu = qp.generate_test_problem(num_primals=QP_N, num_inequalities=QP_N, device="cpu")
+    th = stack[0, :8].double().cpu()
+    ref = solve_batch(cpu.mcp, th, options=options)
+    status, x = res.status[0, :8].cpu(), res.x[0, :8].double().cpu()
+    rel = float((ref.x - x).abs().max() / ref.x.abs().max())
+    log(f"  QP reference (CPU f64 plain) vs card (f32 kernels), 8 lanes: status "
+        f"{ref.status.tolist()} vs {status.tolist()}, iterations "
+        f"{ref.outer_iters.tolist()} vs {res.outer_iters[0, :8].tolist()}, "
+        f"max|dx|/max|x|={rel:.3e} (tol {QP_REF_REL_TOL:g})")
+    check(torch.equal(ref.status, status), "QP reference: status differs")
+    check(rel <= QP_REF_REL_TOL, f"QP reference: x differs by {rel:.3e}")
 
 
 # -- profile ---------------------------------------------------------------
@@ -435,7 +792,31 @@ def thomas_counts(Bn, T, b, shared_bands, itemsize=4):
     return nbytes, flops
 
 
-def phase_timing(real_bands, k1_err, k2_err, launches, device):
+def dense_counts(kind, Bn, n, itemsize=4):
+    """(bytes, flops) of one batched dense solve: A and b read once, x (and
+    A⁻¹) written once; the operations the algorithm does on these inputs.
+    GJ: per step the n multipliers, row k scaled and n−1 rows updated over
+    the live columns: the n−k right of the pivot for [A | b], n+1 with the
+    inverse (A right of the pivot, b, identity columns 0..k; row k is 0 on
+    the later identity columns, so they take no work). QR: per reflection the column norm, uᵀM and the rank-1 update
+    over the (n−k)×(n+1−k) trailing block, then the back substitution."""
+    if kind == "qr":
+        per = sum(2 * j + 4 * j * (j + 1) for j in range(1, n + 1)) + n * (n + 1)
+        out = n
+    else:
+        live = [n + 1 if kind == "gji" else n - k for k in range(n)]
+        per = sum(n + 1 + (2 * n - 1) * c for c in live)
+        out = n + (n * n if kind == "gji" else 0)
+    return Bn * (n * n + n + out) * itemsize, Bn * per
+
+
+def bound(nbytes, flops):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs,
+                 dense_launches):
     import torch
 
     from mcp_tpu_torch.kernels.linesearch import linesearch_update, linesearch_update_plain
@@ -485,6 +866,34 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device):
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
     ]
+    # K4a, K4b/K4c, K5 on the cold-start QP Schur system (B=256, n=100,
+    # float32); library yardstick: one batched torch.linalg.solve (LU with
+    # partial pivoting) of the same function, which the port never calls.
+    from mcp_tpu_torch.kernels import linear_solve as L
+
+    A, b = schur
+    Bn, n, _ = A.shape
+    eye_rhs = torch.cat([b[..., None], torch.eye(n, dtype=A.dtype, device=device).expand(Bn, n, n)], 2)
+    for name, kind, fn, plain, lib, line in (
+        ("gj_solve", "gj", L.gj_solve, L.gj_solve_plain,
+         lambda: torch.linalg.solve(A, b[..., None]), "gauss_jordan.cu"),
+        ("gji_solve", "gji", L.gji_solve, L.gji_solve_plain,
+         lambda: torch.linalg.solve(A, eye_rhs), "gauss_jordan.cu"),
+        ("gauss_solve", "qr", L.gauss_solve, L.qr_solve_plain,
+         lambda: torch.linalg.solve(A, b[..., None]), "qr_dense.cu"),
+    ):
+        nbytes, flops = dense_counts(kind, Bn, n)
+        b_ms, b_by = bound(nbytes, flops)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mcp_tpu_torch/kernels/csrc/{line}",
+            "replaces": {"gj": "mcp_tpu/kernels/linear_solve.py:577",
+                         "gji": "mcp_tpu/kernels/linear_solve.py:674",
+                         "qr": "mcp_tpu/kernels/linear_solve.py:494"}[kind],
+            "launches": dense_launches[name], "max_abs_err": dense_errs[name],
+            "ms": cuda_ms(lambda: fn(A, b), 50), "plain_ms": cuda_ms(lambda: plain(A, b), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 20),
+        })
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "
             f"{k['bound_ms']:.5f} ms by {k['bound_by']}, library {k['library_ms']})")
@@ -529,10 +938,21 @@ def main() -> int:
     mcp, options, stack, res, launches = phase_main_path(device)
     log("phase 5: reference check")
     phase_reference(options, stack, res)
-    log("phase 6: kernel timing")
-    kernels = phase_timing(real_bands, k1_err, k2_err, launches, device)
-    log("phase 7: profile of one main-path batch")
+    log("phase 6: K4a (gj), K5 (gji), K4b/K4c (gauss, QR) kernels vs plain")
+    schur, dense_errs = phase_dense_kernels(device)
+    log("phase 7: QP path")
+    qp_mcp, qp_options, qp_stack, qp_res, gj_launches = phase_qp_path(device)
+    log("phase 8: QP tiers schur_pallas (K4b/K4c) and schur_pallas_gjr (K5)")
+    tier_launches = phase_qp_tiers(qp_mcp, qp_options, device)
+    log("phase 9: QP reference check")
+    phase_qp_reference(qp_options, qp_stack, qp_res)
+    log("phase 10: kernel timing")
+    kernels = phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs,
+                           {"gj_solve": gj_launches, **tier_launches})
+    log("phase 11: profile of one main-path batch")
     phase_profile(mcp, options, stack[0])
+    log("phase 12: profile of one QP batch")
+    phase_profile(qp_mcp, qp_options, qp_stack[0])
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,18 +1,21 @@
 """mcp_tpu_torch — the mcp_tpu solver ported to PyTorch and CUDA.
 
-This slice covers the batched lane-change interior-point solve: the game
-front end (parametric games, trajectory games, the lane-change example), the
-banded Newton tier "tridiag_pallas" of the annealed algorithm "ip" with the
-terminal polish, batched and streamed serving, and the true-KKT certifier.
-Its two kernels, the block-Thomas sweep (K1) and the fused linesearch (K2),
-are hand-written CUDA for Hopper (kernels/csrc/); on CPU tensors each runs
-its plain PyTorch version.
+The port covers the batched lane-change interior-point solve (the game
+front end, the banded Newton tier "tridiag_pallas" of the annealed
+algorithm "ip") and the random-QP suite (the dense tiers "dense",
+"condensed", "schur", "schur_pallas", "schur_pallas_gj", "schur_pallas_gjr"
+under the "ip", "mehrotra" and "hybrid" algorithms, with retry rounds),
+the terminal polish, batched and streamed serving, and the true-KKT
+certifier. Its kernels, the block-Thomas sweep (K1), the fused linesearch
+(K2), the Gauss–Jordan solve (K4a) and solve-and-inverse (K5) and the
+Householder-QR dense solve (K4b/K4c), are hand-written CUDA for Hopper
+(kernels/csrc/); on CPU tensors each runs its plain PyTorch version.
 
 Entry points that create state take ``device=`` (default ``"cuda"``, which
 raises on a machine without a GPU); solves follow the device of θ.
 """
 
-from .mcp import PrimalDualMCP
+from .mcp import PrimalDualMCP, verify_affine
 from .solver import SolverOptions, auto_tightening_rate, ip_solve
 from .types import FAILED, SOLVED, SolveResult
 from .games import OptimizationProblem, ParametricGame, game_to_mcp
@@ -20,6 +23,7 @@ from .parallel.batch import batch_statistics, solve_batch, solve_batches_streame
 
 __all__ = [
     "PrimalDualMCP",
+    "verify_affine",
     "SolverOptions",
     "SolveResult",
     "SOLVED",

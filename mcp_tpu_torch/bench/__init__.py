@@ -1,1 +1,5 @@
 """Benchmark problems and the certification harness."""
+
+from . import qp
+
+__all__ = ["qp"]

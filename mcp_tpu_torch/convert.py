@@ -5,6 +5,9 @@ builder attaches to the MCP, the ``TimeStructure`` and the ``AffineBands``.
 These functions take a dict of plain ints, tuples or numpy arrays (``None``
 stays ``None``), e.g. produced from the JAX package's MCP, and return the
 port's objects, so both packages can run on the same bands.
+
+The random-QP MCP (``bench/qp.py``) closes over nothing but θ, so nothing of
+it carries across: the same θ, as a numpy array, goes into both packages.
 """
 
 from __future__ import annotations

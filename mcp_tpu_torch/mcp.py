@@ -112,6 +112,21 @@ class PrimalDualMCP:
         g, h = self.gh(x, y, theta)
         return (g, h) + self.gh_jacobians(x, y, theta)
 
+    def gh_affine_data(self, theta: Tensor, dtype=None):
+        """Affine decomposition ``G = g0 + Gx·x + Gy·y``, ``H = h0 + Hx·x +
+        Hy·y`` of a batch, valid only when ``affine=True`` (constant
+        Jacobians): θ (B, p) → g0 (B, n), h0 (B, m), Gx (B, n, n),
+        Gy (B, n, m), Hx (B, m, n), Hy (B, m, m). Evaluated at (x, y) = 0, so
+        g0/h0 are the pure-θ offsets; one forward-mode Jacobian per solve
+        serves every Newton step."""
+        dtype = dtype or theta.dtype
+        theta = theta.to(dtype)
+        B = theta.shape[0]
+        x0 = theta.new_zeros((B, self.unconstrained_dimension))
+        y0 = theta.new_zeros((B, self.constrained_dimension))
+        g0, h0 = self.gh_batched(x0, y0, theta)
+        return (g0, h0) + vmap(self.gh_jacobians)(x0, y0, theta)
+
     def total_dimension(self) -> int:
         return self.unconstrained_dimension + 2 * self.constrained_dimension
 
@@ -184,3 +199,36 @@ class PrimalDualMCP:
             GH=gh,
             affine=affine,
         )
+
+
+def verify_affine(
+    mcp: PrimalDualMCP,
+    theta: Tensor,
+    *,
+    generator: Optional[torch.Generator] = None,
+    atol: float = 1e-4,
+) -> bool:
+    """Numerically check that (G, H) are affine in (x, y) at θ ((p,) or a
+    batch (B, p)): the affine model of ``gh_affine_data`` must reproduce
+    ``gh`` at two random probe points within ``atol``. The probes are
+    standard normal draws from ``generator`` (a CPU generator; default seed
+    7), moved to θ's device. Call it before constructing an MCP with
+    ``affine=True`` whose structure is not known analytically."""
+    generator = torch.Generator().manual_seed(7) if generator is None else generator
+    theta = theta[None] if theta.dim() == 1 else theta
+    B, n, m = theta.shape[0], mcp.unconstrained_dimension, mcp.constrained_dimension
+    with torch.no_grad():
+        g0, h0, Gx, Gy, Hx, Hy = mcp.gh_affine_data(theta)
+
+        def off(v, v0, Jx, Jy, x, y):
+            e = v - (v0 + (Jx @ x[..., None])[..., 0] + (Jy @ y[..., None])[..., 0])
+            return float(e.abs().max()) if e.numel() else 0.0
+
+        for _ in range(2):
+            x = torch.randn((B, n), generator=generator, dtype=torch.float64)
+            y = torch.randn((B, m), generator=generator, dtype=torch.float64)
+            x, y = (v.to(device=theta.device, dtype=g0.dtype) for v in (x, y))
+            g, h = mcp.gh_batched(x, y, theta)
+            if off(g, g0, Gx, Gy, x, y) > atol or off(h, h0, Hx, Hy, x, y) > atol:
+                return False
+    return True

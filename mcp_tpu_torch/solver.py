@@ -1,4 +1,6 @@
-"""Interior-point MCP solver over a batch, written batch-first.
+"""Interior-point MCP solvers over a batch, written batch-first.
+
+``algorithm="ip"``, the reference's annealed loop:
 
   outer loop (≤ max_outer_iters): anneal ϵ from 1.0
     inner Newton loop (≤ max_inner_iters): while ‖F‖∞ > ϵ
@@ -11,35 +13,45 @@
   status := failed if outer_iters hits max_outer_iters
   optional terminal polish at ϵ = tol/2 against the true residual.
 
+``algorithm="mehrotra"``: a predictor-corrector loop, one Jacobian and one
+factorization per iteration shared by the affine predictor and the centered
+corrector (see ``_mehrotra_solve_body``). ``algorithm="hybrid"``: the
+annealed loop down to ϵ ≤ hybrid_switch_tol, then Mehrotra from there.
+``retry > 0`` re-solves failed lanes from the cold start under the annealed
+schedule (``_retry_failed``).
+
 The JAX package runs a per-instance ``lax.while_loop`` nest under ``vmap``;
 a vmapped while loop runs while ANY lane's condition holds, applies the body
 to every lane and keeps the new carry only where that lane's condition was
-true. This port writes exactly that over (B, ·) tensors: the outer loop runs
-while ``outer_live.any()``, the inner loop while
-``(outer_live & inner_live).any()``, and a lane outside the mask is frozen
-with ``torch.where`` (never by multiplying by 0: 0·NaN = NaN). Each loop
-test is one host sync (a ``.any()`` read), a known cost of this version.
+true. This port writes exactly that over (B, ·) tensors: each loop runs
+while its live mask has a lane, and a lane outside the mask is frozen with
+``torch.where`` (never by multiplying by 0: 0·NaN = NaN). Each loop test is
+one host sync (a ``.any()`` read).
 
-This slice ports the banded tier ``linear_solver="tridiag_pallas"`` of the
-annealed algorithm ``"ip"``: each inner step is the vmapped residual, the
-affine-bands rebuild, ``banded_newton_step_compressed`` with the K1 sweep
-(kernels/thomas.py) and the fused K2 linesearch (kernels/linesearch.py);
-each polish step is K1 with the unfused linesearch. Options that select a
-path not ported yet raise ``NotImplementedError`` naming the ROADMAP item.
+Linear-solver tiers: the banded ``"tridiag_pallas"`` (trajectory games:
+K1 sweep, fused K2 linesearch) and the dense tiers of ``linalg.py``
+(``"dense"``, ``"condensed"``, ``"schur"``, ``"schur_pallas"`` → K4b/K4c,
+``"schur_pallas_gj"`` → K4a, ``"schur_pallas_gjr"`` → K5). The dense tiers
+linearize by ``_make_linearizer``: an affine MCP (the QP benchmark) has its
+Jacobian extracted once per solve. Options that select a path not ported
+yet raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Optional
 
 import torch
+from torch.func import vmap
 from torch.profiler import record_function
 
 from .kernels.block_tridiag import banded_newton_step_compressed, gh_banded_fast
 from .kernels.linesearch import _candidate_tensor, linesearch_update
 from .kernels.thomas import thomas_solve
+from .linalg import GMRES_NOT_PORTED, NEWTON_STEPS, factored_newton_solver
 from .mcp import PrimalDualMCP
 from .types import FAILED, SOLVED, SolveResult
 
@@ -78,20 +90,28 @@ class SolverOptions:
     matmul_precision: str = "highest"
     verbose: bool = False
     algorithm: str = "ip"
+    # Mehrotra: the complementarity target is floored at
+    # centering_floor·‖(rG, rH)‖∞; refinement_steps back-solves against the
+    # unregularized Jacobian follow each solve.
     centering_floor: float = 0.01
     refinement_steps: int = 1
     gmres_tol: float = 1e-8
     gmres_restart: int = 50
     gmres_maxiter: int = 5
     gmres_preconditioner: str = "none"
-    # None = the fused K2 linesearch for the "tridiag_pallas" tier.
+    # None = the fused K2 linesearch exactly for the "tridiag_pallas" tier.
     fused_linesearch: Optional[bool] = None
     # Newton-system regularization; None = tol·I.
     regularization: Optional[float] = None
+    # Hybrid: annealed warm-up until ϵ ≤ hybrid_switch_tol, then Mehrotra.
     hybrid_switch_tol: float = 1e-2
     # Terminal polish: up to max_inner_iters extra Newton steps at ϵ = tol/2
     # until the TRUE residual ‖(g, h−s, s∘y)‖∞ ≤ polish_margin·tol.
     polish: bool = False
+    # Retry rounds: failed lanes re-solve from x = 0, y = s = 1 under the
+    # annealed schedule at retry_tightening_rate, on retry_linear_solver
+    # (None = the primary tier) within retry_max_outer_iters (None =
+    # max_outer_iters).
     retry: int = 0
     retry_tightening_rate: float = 0.1
     retry_linear_solver: Optional[str] = None
@@ -136,28 +156,56 @@ def fraction_to_the_boundary_linesearch(
 def fraction_to_the_boundary_linesearch_pair(
     v: torch.Tensor, dv: torch.Tensor, *, tau: float, decay: float, min_stepsize: float
 ) -> torch.Tensor:
-    """The linesearch over a leading pair axis: v, dv (2, B, m) → (2, B)."""
+    """The linesearch over a leading pair axis: v, dv (2, B, m) → (2, B)
+    (m = 0 included: every candidate is feasible, α = 1)."""
+    flat = (v.shape[0] * v.shape[1], v.shape[-1])
     return fraction_to_the_boundary_linesearch(
-        v.reshape(-1, v.shape[-1]), dv.reshape(-1, dv.shape[-1]),
+        v.reshape(flat), dv.reshape(flat),
         tau=tau, decay=decay, min_stepsize=min_stepsize,
     ).reshape(v.shape[:-1])
 
 
+def _check_tier(mcp: PrimalDualMCP, tier: str):
+    if tier.startswith("tridiag"):
+        if tier != "tridiag_pallas":
+            raise NotImplementedError(
+                f"linear_solver={tier!r} is not ported yet (ROADMAP Queue 2 "
+                "K3/K7: other banded factorizations); this port has "
+                "'tridiag_pallas'"
+            )
+        st = mcp.time_structure
+        if st is None:
+            raise ValueError(
+                "linear_solver='tridiag' requires an MCP with time_structure "
+                "(built by build_parametric_game for trajectory games)."
+            )
+        if st.row_permutation is None:
+            raise NotImplementedError(
+                "the banded tier without a row time structure needs "
+                "tridiag_solve_permuted, not ported yet (ROADMAP Queue 1 item 4)"
+            )
+    elif tier == "gmres":
+        raise NotImplementedError(GMRES_NOT_PORTED)
+    elif tier not in NEWTON_STEPS:
+        raise ValueError(f"unknown linear_solver {tier!r}")
+
+
 def _check_supported(mcp: PrimalDualMCP, options: SolverOptions):
-    if options.algorithm != "ip":
-        raise NotImplementedError(
-            f"algorithm={options.algorithm!r} is not ported yet "
-            "(ROADMAP Queue 1 item 8: Mehrotra and hybrid)"
-        )
-    if options.linear_solver != "tridiag_pallas":
-        raise NotImplementedError(
-            f"linear_solver={options.linear_solver!r} is not ported yet "
-            "(ROADMAP Queue 1 item 8: dense tiers; Queue 2 K3/K7: other "
-            "banded factorizations); this port has 'tridiag_pallas'"
-        )
+    if options.algorithm not in ("ip", "mehrotra", "hybrid"):
+        raise ValueError(f"unknown algorithm {options.algorithm!r}")
+    _check_tier(mcp, options.linear_solver)
     if options.retry:
+        _check_tier(mcp, options.retry_linear_solver or options.linear_solver)
+    if (
+        options.algorithm != "ip"
+        and options.linear_solver.startswith("tridiag")
+        and mcp.constrained_dimension > 0
+    ):
         raise NotImplementedError(
-            "retry > 0 is not ported yet (ROADMAP Queue 1 item 5: _retry_failed)"
+            f"algorithm={options.algorithm!r} on a banded tier needs "
+            "banded_jac_mv, not ported yet (ROADMAP Queue 1 item 8; the banded "
+            "Newton module is item 4); "
+            "use a dense tier or algorithm='ip'"
         )
     if options.verbose:
         raise NotImplementedError(
@@ -167,13 +215,6 @@ def _check_supported(mcp: PrimalDualMCP, options: SolverOptions):
         raise NotImplementedError(
             "only matmul_precision='highest' (TF32 off) is ported "
             "(ROADMAP Queue 1 item 5)"
-        )
-    st = mcp.time_structure
-    if st is None or st.row_permutation is None:
-        raise NotImplementedError(
-            "the banded tier needs an MCP with a time structure and a row "
-            "time structure (trajectory games); dense tiers are ROADMAP "
-            "Queue 1 item 8"
         )
 
 
@@ -200,24 +241,140 @@ def ip_solve(
             f"the game was built on {ab.diag0.device} but the iterates are "
             f"on {x0.device}"
         )
-    return _ip_solve_body(mcp, options, theta, x0, y0, s0)
+    if options.linear_solver.startswith("schur_pallas_gj") and not mcp.affine:
+        # No-pivot Gauss–Jordan is backward-stable only on (near-)SPD Schur
+        # systems, the affine convex-QP path.
+        warnings.warn(
+            f"linear_solver={options.linear_solver!r} (no-pivot Gauss-"
+            "Jordan) selected for a non-affine MCP: only valid when the "
+            "schur matrix is SPD (convex QPs). Game systems should use "
+            "the QR tiers ('schur_pallas'); enable polish=True to at "
+            "least certify the terminal residual.",
+            stacklevel=2,
+        )
+    if options.algorithm == "mehrotra":
+        res = _mehrotra_solve_body(mcp, options, theta, x0, y0, s0)
+    elif options.algorithm == "hybrid":
+        # Phase 1: annealed warm-up to ϵ ≤ hybrid_switch_tol with the final
+        # tolerance's regularization and no polish; phase 2: Mehrotra from
+        # that interior point, slacks and duals carried.
+        warm_options = dataclasses.replace(
+            options,
+            algorithm="ip",
+            tol=options.hybrid_switch_tol,
+            regularization=(
+                options.regularization
+                if options.regularization is not None
+                else options.tol
+            ),
+            polish=False,
+        )
+        r1 = _ip_solve_body(mcp, warm_options, theta, x0, y0, s0)
+        r2 = _mehrotra_solve_body(mcp, options, theta, r1.x, r1.y, r1.s)
+        res = r2._replace(outer_iters=r1.outer_iters + r2.outer_iters)
+    else:
+        res = _ip_solve_body(mcp, options, theta, x0, y0, s0)
+    for _ in range(int(options.retry)):
+        res = _retry_failed(mcp, options, theta, res)
+    return res
 
 
-def _newton_step(mcp, ab, theta, x, y, s, eps, reg):
-    """Residual, banded linearization and Newton direction of every lane.
-    Returns (rG, rH, rC, dx, dy, ds)."""
-    st = mcp.time_structure
-    with record_function(SPAN_RESIDUAL):
-        g, h, diag_b, lower_b, upper_b, Gy_b, Hx_b = gh_banded_fast(
-            mcp, st, x, y, theta, affine_bands=ab
+def _retry_failed(mcp, options, theta, res: SolveResult) -> SolveResult:
+    """One gated retry round: lanes that did not solve re-solve from the
+    cold start x = 0, y = s = 1 under the annealed schedule; the other
+    lanes' loops are gated off, so when every lane solved the round costs
+    one residual evaluation. Lanes that entered the retry pay its
+    iterations whether or not it rescued them."""
+    need = res.status != SOLVED
+    retry_options = dataclasses.replace(
+        options,
+        algorithm="ip",
+        tightening_rate=options.retry_tightening_rate,
+        linear_solver=options.retry_linear_solver or options.linear_solver,
+        retry=0,
+        max_outer_iters=(
+            options.retry_max_outer_iters
+            if options.retry_max_outer_iters is not None
+            else options.max_outer_iters
+        ),
+    )
+    r2 = _ip_solve_body(
+        mcp, retry_options, theta,
+        torch.zeros_like(res.x), torch.ones_like(res.y), torch.ones_like(res.s),
+        gate=need,
+    )
+    take = need & (r2.status == SOLVED)
+
+    def pick(a, b):
+        return torch.where(take.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+
+    return SolveResult(
+        x=pick(r2.x, res.x),
+        y=pick(r2.y, res.y),
+        s=pick(r2.s, res.s),
+        kkt_error=pick(r2.kkt_error, res.kkt_error),
+        epsilon=pick(r2.epsilon, res.epsilon),
+        outer_iters=res.outer_iters + torch.where(need, r2.outer_iters, 0),
+        status=torch.where(take, SOLVED, res.status),
+    )
+
+
+def _make_linearizer(mcp: PrimalDualMCP, theta: torch.Tensor, dtype):
+    """Per-solve batched linearizer ``lin(x, y) -> (g, h, Gx, Gy, Hx, Hy)``.
+
+    For an affine MCP (constant (x, y)-Jacobians, e.g. the QP benchmark's
+    KKT system) the Jacobians and offsets are extracted ONCE here, outside
+    the Newton loop; each step's residual then costs two batched matvecs.
+    Otherwise every call linearizes every lane by forward mode."""
+    if mcp.affine:
+        g0, h0, Gx, Gy, Hx, Hy = (
+            t.to(dtype) for t in mcp.gh_affine_data(theta, dtype=dtype)
         )
-    rG, rH, rC = g, h - s, s * y - eps[:, None]
-    with record_function(SPAN_NEWTON):
-        dx, dy, ds = banded_newton_step_compressed(
-            diag_b, lower_b, upper_b, Gy_b, Hx_b, y, s, rG, rH, rC, reg, st,
-            algorithm=thomas_solve,
-        )
-    return rG, rH, rC, dx, dy, ds
+
+        def lin(x, y):
+            g = g0 + (Gx @ x[..., None])[..., 0] + (Gy @ y[..., None])[..., 0]
+            h = h0 + (Hx @ x[..., None])[..., 0] + (Hy @ y[..., None])[..., 0]
+            return g, h, Gx, Gy, Hx, Hy
+
+        return lin
+    return lambda x, y: vmap(mcp.gh_linearized)(x, y, theta)
+
+
+def _make_step(mcp, options, theta, dtype, reg, lin=None):
+    """``step(x, y, s, eps) -> (rG, rH, rC, dx, dy, ds)``: the residual of
+    every lane at (x, y, s) and its regularized Newton direction, on the
+    tier of ``options.linear_solver``. A dense tier linearizes by ``lin``
+    (default: a new ``_make_linearizer``)."""
+    if options.linear_solver.startswith("tridiag"):
+        st = mcp.time_structure
+        ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=dtype)
+
+        def step(x, y, s, eps):
+            with record_function(SPAN_RESIDUAL):
+                g, h, diag_b, lower_b, upper_b, Gy_b, Hx_b = gh_banded_fast(
+                    mcp, st, x, y, theta, affine_bands=ab
+                )
+            rG, rH, rC = g, h - s, s * y - eps[:, None]
+            with record_function(SPAN_NEWTON):
+                dx, dy, ds = banded_newton_step_compressed(
+                    diag_b, lower_b, upper_b, Gy_b, Hx_b, y, s, rG, rH, rC, reg, st,
+                    algorithm=thomas_solve,
+                )
+            return rG, rH, rC, dx, dy, ds
+
+        return step
+    lin = lin or _make_linearizer(mcp, theta, dtype)
+    newton = NEWTON_STEPS[options.linear_solver]
+
+    def step(x, y, s, eps):
+        with record_function(SPAN_RESIDUAL):
+            g, h, Gx, Gy, Hx, Hy = lin(x, y)
+        rG, rH, rC = g, h - s, s * y - eps[:, None]
+        with record_function(SPAN_NEWTON):
+            dx, dy, ds = newton(Gx, Gy, Hx, Hy, y, s, rG, rH, rC, reg)
+        return rG, rH, rC, dx, dy, ds
+
+    return step
 
 
 def _any(live: torch.Tensor) -> bool:
@@ -252,26 +409,35 @@ def _unfused_step(options, x, dx, s, ds, y, dy):
     return x + a_s * safe(dx), s + a_s * safe(ds), y + a_y * safe(dy), step_failed
 
 
+def _absmax(r: torch.Tensor) -> torch.Tensor:
+    """Per-lane ‖r‖∞ of (B, k), 0 for k = 0."""
+    if r.shape[1] == 0:
+        return r.new_zeros(r.shape[0])
+    return r.abs().amax(dim=1)
+
+
 def _kkt(rG, rH, rC):
-    return torch.maximum(
-        rG.abs().amax(dim=1), torch.maximum(rH.abs().amax(dim=1), rC.abs().amax(dim=1))
-    )
+    return torch.maximum(_absmax(rG), torch.maximum(_absmax(rH), _absmax(rC)))
 
 
-def _ip_solve_body(mcp, options, theta, x0, y0, s0) -> SolveResult:
+def _ip_solve_body(mcp, options, theta, x0, y0, s0, gate=None) -> SolveResult:
+    """The annealed loop. ``gate`` (B,) bool, when given, runs only the lanes
+    it marks; the others come back FAILED with their iterate untouched."""
     B = theta.shape[0]
     dtype, device = x0.dtype, x0.device
     tol = options.tol
     reg = options.regularization if options.regularization is not None else tol
-    ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=dtype)
+    step = _make_step(mcp, options, theta, dtype, reg)
     use_fused_ls = (
-        options.fused_linesearch if options.fused_linesearch is not None else True
+        options.fused_linesearch
+        if options.fused_linesearch is not None
+        else options.linear_solver == "tridiag_pallas"
     )
     candidates = linesearch_candidates(options.decay, options.min_stepsize)
 
     def inner_body(x, y, s, eps):
         """(x', y', s', F_norm, step_failed) of every lane."""
-        rG, rH, rC, dx, dy, ds = _newton_step(mcp, ab, theta, x, y, s, eps, reg)
+        rG, rH, rC, dx, dy, ds = step(x, y, s, eps)
         if use_fused_ls:
             with record_function(SPAN_LINESEARCH):
                 x, s, y, F_norm, failed = linesearch_update(
@@ -290,7 +456,8 @@ def _ip_solve_body(mcp, options, theta, x0, y0, s0) -> SolveResult:
     failed = torch.zeros((B,), dtype=torch.bool, device=device)
 
     def outer_cond(kkt, eps, outer):
-        return (kkt > tol) & (eps > tol) & (outer < options.max_outer_iters)
+        live = (kkt > tol) & (eps > tol) & (outer < options.max_outer_iters)
+        return live if gate is None else live & gate
 
     outer_live = outer_cond(kkt, eps, outer)
     while _any(outer_live):
@@ -324,23 +491,23 @@ def _ip_solve_body(mcp, options, theta, x0, y0, s0) -> SolveResult:
 
     if options.polish:
         x, y, s, kkt, failed = _terminal_polish(
-            mcp, options, ab, theta, x, y, s, failed, reg
+            mcp, options, step, theta, x, y, s, failed, gate=gate
         )
-    status = where(
-        failed,
-        torch.full_like(outer, FAILED),
-        torch.full_like(outer, SOLVED),
-    )
+    status = where(failed, FAILED, SOLVED).to(torch.int32)
+    if gate is not None:
+        # A gated-off lane never ran: it reports FAILED, so its untouched
+        # cold-start iterate is never mistaken for a solution.
+        status = where(gate, status, FAILED).to(torch.int32)
     return SolveResult(
         x=x, y=y, s=s, kkt_error=kkt, epsilon=eps, outer_iters=outer, status=status
     )
 
 
-def _terminal_polish(mcp, options, ab, theta, x, y, s, failed, reg):
+def _terminal_polish(mcp, options, step, theta, x, y, s, failed, gate=None):
     """Terminal polish at fixed ϵ = tol/2 against the TRUE residual
-    ‖(g, h−s, s∘y)‖∞: exits below polish_margin·tol so an independently
-    rounded recompute does not flip boundary lanes. Returns
-    (x, y, s, true_kkt, failed | true_kkt > tol)."""
+    ‖(g, h−s, s∘y)‖∞, with the caller's Newton ``step``: exits below
+    polish_margin·tol so an independently rounded recompute does not flip
+    boundary lanes. Returns (x, y, s, true_kkt, failed | true_kkt > tol)."""
     tol = options.tol
     exit_tol = options.polish_margin * tol
     B = x.shape[0]
@@ -351,13 +518,17 @@ def _terminal_polish(mcp, options, ab, theta, x, y, s, failed, reg):
             g, h = mcp.gh_batched(x, y, theta)
         return _kkt(g, h - s, s * y)
 
+    def polish_live(tk, p_failed):
+        live = (tk > exit_tol) & ~p_failed
+        return live if gate is None else live & gate
+
     where = torch.where
     tk = true_kkt_at(x, y, s)
     iters = 0
     p_failed = torch.zeros_like(failed)
-    live = (tk > exit_tol) & ~p_failed
+    live = polish_live(tk, p_failed)
     while iters < options.max_inner_iters and _any(live):
-        _, _, _, dx, dy, ds = _newton_step(mcp, ab, theta, x, y, s, eps_p, reg)
+        _, _, _, dx, dy, ds = step(x, y, s, eps_p)
         xn, sn, yn, step_failed = _unfused_step(options, x, dx, s, ds, y, dy)
         tkn = true_kkt_at(xn, yn, sn)
         lv = live[:, None]
@@ -365,5 +536,125 @@ def _terminal_polish(mcp, options, ab, theta, x, y, s, failed, reg):
         tk = where(live, tkn, tk)
         p_failed = where(live, step_failed, p_failed)
         iters += 1
-        live = (tk > exit_tol) & ~p_failed
+        live = polish_live(tk, p_failed)
     return x, y, s, tk, failed | (tk > tol)
+
+
+def _max_step_to_boundary(v: torch.Tensor, dv: torch.Tensor, frac) -> torch.Tensor:
+    """Per lane, the closed-form fraction-to-the-boundary step
+    α = min(1, frac · min over δᵢ<0 of −vᵢ/δᵢ): v, dv (B, m) → (B,)."""
+    tiny = torch.finfo(v.dtype).tiny
+    ratios = torch.where(dv < 0, -v / torch.clamp(dv, max=-tiny), math.inf)
+    return torch.clamp(frac * ratios.amin(dim=1), max=1.0)
+
+
+def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0) -> SolveResult:
+    """Mehrotra predictor-corrector over a batch.
+
+    Per iteration: one Jacobian evaluation and one factorization
+    (``linalg.factored_newton_solver``). The affine predictor (rC = s∘y)
+    sets σ = (μ_aff/μ)³ per lane; the corrector re-solves with rC = s∘y +
+    δs_aff∘δy_aff − target, target = max(σμ, centering_floor·‖(rG, rH)‖∞).
+    Each solve is followed by ``refinement_steps`` back-solves against the
+    unregularized Jacobian. A non-finite direction fails the lane and stops
+    it; ``epsilon`` reports the last mean complementarity μ. With m = 0
+    (a pure root-find) the annealed loop runs instead."""
+    n, m = mcp.unconstrained_dimension, mcp.constrained_dimension
+    if m == 0:
+        return _ip_solve_body(mcp, options, theta, x0, y0, s0)
+    B = theta.shape[0]
+    dtype, device = x0.dtype, x0.device
+    tol = options.tol
+    reg = options.regularization if options.regularization is not None else tol
+    lin = _make_linearizer(mcp, theta, dtype)
+    make_solver = factored_newton_solver(options.linear_solver)
+    refine_steps = int(options.refinement_steps)
+    where = torch.where
+
+    def mv(J, v):
+        return (J @ v[..., None])[..., 0]
+
+    def body(x, y, s):
+        with record_function(SPAN_RESIDUAL):
+            g, h, Gx, Gy, Hx, Hy = lin(x, y)
+        rG, rH = g, h - s
+        with record_function(SPAN_NEWTON):
+            solve_f = make_solver(Gx, Gy, Hx, Hy, y, s, reg)
+
+            def solve_refined(bG, bH, bC):
+                dx, dy, ds = solve_f(bG, bH, bC)
+                for _ in range(refine_steps):
+                    # True (unregularized) ∇F_z · δ.
+                    eG = mv(Gx, dx) + mv(Gy, dy)
+                    eH = mv(Hx, dx) + mv(Hy, dy) - ds
+                    eC = s * dy + y * ds
+                    cx, cy, cs = solve_f(bG + eG, bH + eH, bC + eC)
+                    dx, dy, ds = dx + cx, dy + cy, ds + cs
+                return dx, dy, ds
+
+            comp = s * y
+            feas = torch.maximum(_absmax(rG), _absmax(rH))
+            # Affine predictor: full Newton step toward complementarity 0.
+            dx_a, dy_a, ds_a = solve_refined(rG, rH, comp)
+            a_s_aff = _max_step_to_boundary(s, ds_a, 1.0)[:, None]
+            a_y_aff = _max_step_to_boundary(y, dy_a, 1.0)[:, None]
+            mu = comp.sum(dim=1) / m
+            mu_aff = ((s + a_s_aff * ds_a) * (y + a_y_aff * dy_a)).sum(dim=1) / m
+            sigma = where(
+                mu > 0.0,
+                torch.clamp((mu_aff / torch.clamp(mu, min=1e-300)) ** 3, 0.0, 1.0),
+                0.0,
+            ).to(dtype)
+            # Corrector: same factorization, centered + second-order rC.
+            target = torch.maximum(sigma * mu, options.centering_floor * feas)
+            rC = comp + ds_a * dy_a - target[:, None]
+            dx, dy, ds = solve_refined(rG, rH, rC)
+
+        finite = lambda d: torch.isfinite(d).all(dim=1)
+        lin_failed = ~(
+            finite(dx) & finite(dy) & finite(ds) & finite(ds_a) & finite(dy_a)
+        )
+        keep = ~lin_failed[:, None]
+        safe = lambda d: where(keep, d, torch.zeros_like(d))
+        a_s = where(lin_failed, 0.0, _max_step_to_boundary(s, safe(ds), options.tau))
+        a_y = where(lin_failed, 0.0, _max_step_to_boundary(y, safe(dy), options.tau))
+        # safe(): 0·NaN = NaN; a failed step keeps the last good iterate.
+        x = x + a_s[:, None] * safe(dx)
+        s = s + a_s[:, None] * safe(ds)
+        y = y + a_y[:, None] * safe(dy)
+        F_norm = torch.maximum(feas, _absmax(comp))
+        return x, y, s, F_norm, lin_failed, mu
+
+    x, y, s = x0, y0, s0
+    kkt = torch.full((B,), math.inf, dtype=dtype, device=device)
+    iters = torch.ones((B,), dtype=torch.int32, device=device)
+    failed = torch.zeros((B,), dtype=torch.bool, device=device)
+    mu = torch.ones((B,), dtype=dtype, device=device)
+
+    def cond(kkt, iters, failed):
+        return (kkt > tol) & (iters < options.max_outer_iters) & ~failed
+
+    live = cond(kkt, iters, failed)
+    while _any(live):
+        xn, yn, sn, F_norm, step_failed, mu_n = body(x, y, s)
+        lv = live[:, None]
+        x, y, s = where(lv, xn, x), where(lv, yn, y), where(lv, sn, s)
+        kkt = where(live & ~step_failed, F_norm, kkt)
+        iters = where(live, iters + 1, iters)
+        failed = where(live, step_failed, failed)
+        mu = where(live, mu_n, mu)
+        live = cond(kkt, iters, failed)
+    failed = failed | ((iters == options.max_outer_iters) & (kkt > tol))
+
+    if options.polish:
+        # Mehrotra's own exit tests the pre-step residual; the polish drives
+        # the residual at the returned iterate to ≤ tol, with the tier's
+        # direct (unfactored) Newton step.
+        step = _make_step(mcp, options, theta, dtype, reg, lin=lin)
+        x, y, s, kkt, failed = _terminal_polish(
+            mcp, options, step, theta, x, y, s, failed
+        )
+    status = where(failed, FAILED, SOLVED).to(torch.int32)
+    return SolveResult(
+        x=x, y=y, s=s, kkt_error=kkt, epsilon=mu, outer_iters=iters, status=status
+    )

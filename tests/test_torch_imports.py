@@ -53,6 +53,21 @@ def test_default_device_is_cuda_and_raises_without_gpu():
         build_lane_change_game(horizon=3)
 
 
+def test_qp_entry_points_default_to_cuda_and_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    from mcp_tpu_torch.bench import qp
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        qp.generate_test_problem()
+    with pytest.raises(RuntimeError, match="cuda"):
+        qp.generate_parameter_batch(torch.Generator().manual_seed(0), 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        qp.generate_random_parameter(torch.Generator().manual_seed(0), num_primals=3,
+                                     num_inequalities=2)
+    assert qp.generate_test_problem(device="cpu").device == torch.device("cpu")
+
+
 def test_cpu_import_builds_nothing():
     """Importing the package and running a wrapper on CPU tensors never
     reaches nvcc: the CPU path is the plain version and counts no launch."""
@@ -68,4 +83,32 @@ def test_cpu_import_builds_nothing():
     x = thomas_solve(diag, lower, upper, rhs)
     assert x.shape == (2, 3, 4) and bool(torch.isfinite(x).all())
     assert thomas_solve.launches == before
+    assert not _build._LIBS
+
+
+def test_cpu_dense_solves_build_nothing():
+    """The dense-solve wrappers (K4a, K5, K4b/K4c) and a whole QP solve on
+    CPU tensors run the plain versions: no nvcc, no launch counted."""
+    from mcp_tpu_torch import SolverOptions, solve_batch
+    from mcp_tpu_torch.bench import qp
+    from mcp_tpu_torch.kernels import _build
+    from mcp_tpu_torch.kernels import linear_solve as L
+
+    wrappers = (L.gj_solve, L.gji_solve, L.gauss_solve)
+    before = [w.launches for w in wrappers]
+    gen = torch.Generator().manual_seed(0)
+    P = torch.randn(3, 5, 5, generator=gen, dtype=torch.float64)
+    A = P @ P.mT + 5 * torch.eye(5, dtype=torch.float64)
+    b = torch.randn(3, 5, generator=gen, dtype=torch.float64)
+    for w in wrappers:
+        out = w(A, b)
+        x = out[0] if isinstance(out, tuple) else out
+        torch.testing.assert_close(A @ x[..., None], b[..., None])
+    problem = qp.generate_test_problem(num_primals=4, num_inequalities=3, device="cpu")
+    th = qp.generate_parameter_batch(gen, 2, num_primals=4, num_inequalities=3,
+                                     sparsity_rate=0.0, dtype=torch.float64, device="cpu")
+    for tier in ("schur_pallas_gj", "schur_pallas", "schur_pallas_gjr"):
+        solve_batch(problem.mcp, th, options=SolverOptions(linear_solver=tier,
+                                                           algorithm="mehrotra", polish=True))
+    assert [w.launches for w in wrappers] == before
     assert not _build._LIBS

@@ -150,11 +150,14 @@ def test_warm_chain_streams_from_the_previous_solution():
     [
         (dict(algorithm="mehrotra"), "item 8"),
         (dict(linear_solver="tridiag_pallas_cr"), "K3"),
-        (dict(retry=1), "item 5"),
+        (dict(matmul_precision="high"), "item 5"),
         (dict(verbose=True), "item 5"),
     ],
 )
 def test_unported_options_raise(override, item):
+    """Mehrotra on the banded tier needs banded_jac_mv; the other banded
+    factorizations are K3/K7; verbose and reduced matmul precision are not
+    ported."""
     _, tm, thetas, _ = _setup()
     with pytest.raises(NotImplementedError, match=item):
         solve_batch(tm, torch.from_numpy(thetas[:1]), options=SolverOptions(**{**HEADLINE, **override}))
