@@ -14,10 +14,15 @@ and read just after:
     float32, tol 1e-4, Mehrotra on tier "schur_pallas_gj", the QP suite's
     defaults), and one batch on each of the tiers "schur_pallas" and
     "schur_pallas_gjr";
+  * the masked N-player flagship games on tier "tridiag_auto" (horizon 30,
+    batch 8, float32, tol 1e-4): N=4 (b=40, hybrid with refinement 0, four
+    batches after a warm one; K3 with pivoted Gauss–Jordan) and N=10
+    (b=100, "ip", one batch; K3 with refined pivoted Gauss–Jordan);
 
 certifies each result with the true KKT residual, checks a few lanes
 against a float64 CPU reference, times each kernel beside its bound, its
-plain version and a library call, profiles one batch of each path, and
+plain version and a library call, profiles one batch of each path (the
+first outer iterations of the N=10 batch), and
 prints as its last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -28,6 +33,7 @@ any phase fails. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -84,6 +90,28 @@ QR_BWD_TOL = {"float32": 100 * 2.0**-23, "float64": 100 * 2.0**-52}
 # lanes, relative to max|x|: at tol 1e-4 a solution is fixed only to about
 # cond·tol (measured up to 2.8e-3 between f32 and f64 over 32 CPU lanes).
 QP_REF_REL_TOL = 1e-2
+
+# The masked N-player flagships (the reference's timing workload): circle
+# crossing, all-ones masks, horizon 30, batch 8, tier "tridiag_auto".
+FLAG_B, FLAG_T, N4_BATCHES = 8, 30, 4
+N4_OPTIONS = dict(tol=1e-4, linear_solver="tridiag_auto", algorithm="hybrid",
+                  refinement_steps=0, polish=True)
+N10_OPTIONS = dict(tol=1e-4, linear_solver="tridiag_auto", algorithm="ip", polish=True)
+N4_MIN_SUCCESS, N10_MIN_SUCCESS = 0.9, 0.75
+# The N=10 batch runs for minutes (its failing lanes iterate to
+# max_outer_iters); its profile covers the first few outer iterations.
+N10_PROFILE_OUTER = 3
+# K3 against its plain version: max|kernel − plain| / max|plain|. The
+# Gauss–Jordan elimination rounds as the plain version; the head
+# contraction, refinement and level products sum in another order, which
+# shows at a few ε·cond. Each system is also held to a backward error of the
+# whole block-tridiagonal system ‖Ax − r‖∞/(‖A‖∞‖x‖∞ + ‖r‖∞) ≤ 100 ε, or,
+# where the algorithm itself exceeds that (cyclic reduction with
+# Gauss–Jordan blocks is not backward stable: the plain version measured
+# 216 ε on the N=4 first-Newton bands in float32), to twice the plain
+# version's backward error on the same system.
+K3_TOL = {"float32": 1e-3, "float64": 1e-10}
+K3_BWD_TOL = {"float32": 100 * 2.0**-23, "float64": 100 * 2.0**-52}
 
 
 class PhaseFailed(Exception):
@@ -154,9 +182,10 @@ def block_residual(diag, lower, upper, rhs, x):
     return num / r.flatten(1).norm(dim=1)
 
 
-def first_newton_bands(mcp, thetas):
-    """The (diag, lower, upper, rhs) the solver hands K1 in the first inner
-    step of a cold-started batch."""
+def first_newton_bands(mcp, thetas, x=None):
+    """The (diag, lower, upper, rhs) the solver hands its block-tridiagonal
+    solve in the first inner step of a batch cold-started at x (default 0),
+    y = s = 1."""
     import torch
 
     from mcp_tpu_torch.kernels.block_tridiag import (
@@ -166,11 +195,11 @@ def first_newton_bands(mcp, thetas):
 
     Bn, dtype, dev = thetas.shape[0], thetas.dtype, thetas.device
     n, m = mcp.unconstrained_dimension, mcp.constrained_dimension
-    x = torch.zeros((Bn, n), dtype=dtype, device=dev)
+    x = torch.zeros((Bn, n), dtype=dtype, device=dev) if x is None else x.to(dtype)
     y = torch.ones((Bn, m), dtype=dtype, device=dev)
     s = torch.ones((Bn, m), dtype=dtype, device=dev)
     st = mcp.time_structure
-    ab = mcp.affine_bands.to(dtype=dtype)
+    ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=dtype)
     g, h, *bands = gh_banded_fast(mcp, st, x, y, thetas, affine_bands=ab)
     captured = []
 
@@ -240,14 +269,14 @@ def phase_k1(mcp, device):
 # -- K2 --------------------------------------------------------------------
 
 
-def ls_case(kind, dtype, device, n=200, m=250, seed=0):
+def ls_case(kind, dtype, device, n=200, m=250, seed=0, batch=B):
     import torch
 
     rng = np.random.default_rng(seed)
-    x, dx, rg = (rng.standard_normal((B, n)) for _ in range(3))
-    s, y = rng.uniform(0.01, 2.0, (B, m)), rng.uniform(0.01, 2.0, (B, m))
-    ds, dy = 0.1 * rng.standard_normal((B, m)), 0.1 * rng.standard_normal((B, m))
-    rh, rc = rng.standard_normal((B, m)), rng.standard_normal((B, m))
+    x, dx, rg = (rng.standard_normal((batch, n)) for _ in range(3))
+    s, y = rng.uniform(0.01, 2.0, (batch, m)), rng.uniform(0.01, 2.0, (batch, m))
+    ds, dy = 0.1 * rng.standard_normal((batch, m)), 0.1 * rng.standard_normal((batch, m))
+    rh, rc = rng.standard_normal((batch, m)), rng.standard_normal((batch, m))
     if kind == "partly_feasible":
         ds[::2] = -7.3 * s[::2]
         dy[::2] = -2.9 * y[::2]
@@ -256,14 +285,17 @@ def ls_case(kind, dtype, device, n=200, m=250, seed=0):
     elif kind == "nan_direction":
         dx[0, 0] = np.nan
         ds[5, 1] = np.inf
-        dy[10, 2] = np.nan
+        dy[10 % batch, 2] = np.nan
     return tuple(
         torch.tensor(a, dtype=dtype, device=device)
         for a in (x, dx, s, ds, y, dy, rg, rh, rc)
     )
 
 
-def phase_k2(device):
+def phase_k2(device, shapes=((B, 200, 250),)):
+    """K2 against its plain version on four kinds of step, in float32 and
+    float64, at each (batch, n, m) of ``shapes``; returns the max absolute
+    float32 difference."""
     import torch
 
     from mcp_tpu_torch.kernels.linesearch import linesearch_update, linesearch_update_plain
@@ -272,30 +304,32 @@ def phase_k2(device):
     o = SolverOptions()
     cands = linesearch_candidates(o.decay, o.min_stepsize)
     worst = 0.0
-    for dtype in (torch.float32, torch.float64):
-        for kind in ("feasible", "partly_feasible", "infeasible", "nan_direction"):
-            args = ls_case(kind, dtype, device)
-            got = linesearch_update(*args, tau=o.tau, candidates=cands)
-            torch.cuda.synchronize()
-            want = linesearch_update_plain(*args, tau=o.tau, candidates=cands)
-            errs = [
-                float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
-                for g, w in zip(got[:3], want[:3])
-            ]
-            same_flags = bool(torch.equal(got[4], want[4]))
-            same_kkt = bool(torch.equal(got[3], want[3]))
-            nfail = int(got[4].sum())
-            log(f"  K2 {kind} {str(dtype)[6:]}: failed lanes {nfail}/{B}, flags equal "
-                f"{same_flags}, kkt equal {same_kkt}, max rel err x/s/y "
-                f"{max(errs):.3e} (tol {K2_TOL:g})")
-            check(same_flags and same_kkt, f"K2 {kind}: flags or kkt differ")
-            check(max(errs) <= K2_TOL, f"K2 {kind}: iterates differ")
-            expect = {"feasible": nfail == 0, "partly_feasible": True,
-                      "infeasible": 0 < nfail < B, "nan_direction": nfail == 3}
-            check(expect[kind], f"K2 {kind}: unexpected failure count {nfail}")
-            if dtype == torch.float32:
-                worst = max(worst, max(float((g - w).abs().max()) for g, w in
-                                       zip(got[:3], want[:3])))
+    for batch, n, m in shapes:
+        for dtype in (torch.float32, torch.float64):
+            for kind in ("feasible", "partly_feasible", "infeasible", "nan_direction"):
+                args = ls_case(kind, dtype, device, n=n, m=m, batch=batch)
+                got = linesearch_update(*args, tau=o.tau, candidates=cands)
+                torch.cuda.synchronize()
+                want = linesearch_update_plain(*args, tau=o.tau, candidates=cands)
+                errs = [
+                    float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+                    for g, w in zip(got[:3], want[:3])
+                ]
+                same_flags = bool(torch.equal(got[4], want[4]))
+                same_kkt = bool(torch.equal(got[3], want[3]))
+                nfail = int(got[4].sum())
+                tag = f"{kind} ({batch},{n},{m}) {str(dtype)[6:]}"
+                log(f"  K2 {tag}: failed lanes {nfail}/{batch}, flags equal "
+                    f"{same_flags}, kkt equal {same_kkt}, max rel err x/s/y "
+                    f"{max(errs):.3e} (tol {K2_TOL:g})")
+                check(same_flags and same_kkt, f"K2 {tag}: flags or kkt differ")
+                check(max(errs) <= K2_TOL, f"K2 {tag}: iterates differ")
+                expect = {"feasible": nfail == 0, "partly_feasible": True,
+                          "infeasible": 0 < nfail < batch, "nan_direction": nfail == 3}
+                check(expect[kind], f"K2 {tag}: unexpected failure count {nfail}")
+                if dtype == torch.float32:
+                    worst = max(worst, max(float((g - w).abs().max()) for g, w in
+                                           zip(got[:3], want[:3])))
     return worst
 
 
@@ -715,7 +749,7 @@ def phase_qp_reference(options, stack, res):
 # -- profile ---------------------------------------------------------------
 
 
-def phase_profile(mcp, options, thetas):
+def phase_profile(mcp, options, thetas, x0=None):
     """One batch under torch.profiler: host time per solver span, the
     device's busy and idle share, the kernels that ran, the host syncs.
     (The profiler itself slows the host; shares, not times, are the point.)"""
@@ -733,7 +767,7 @@ def phase_profile(mcp, options, thetas):
         torch.cuda.synchronize()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        solve_batch(mcp, thetas, options=options)
+        solve_batch(mcp, thetas, x0=x0, options=options)
         if on_card:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -900,6 +934,313 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
     return kernels
 
 
+# -- K3 and the masked N-player flagships ----------------------------------
+
+
+def flagship(players, batch=FLAG_B, device="cuda"):
+    """The masked-game flagship at horizon 30, θ noise from seed 0 (the game
+    is built once per N and device)."""
+    from mcp_tpu_torch.bench import flagships
+
+    t0 = time.perf_counter()
+    s = flagships.masked_game_setup(batch, players, FLAG_T, device=device)
+    st = s.mcp.time_structure
+    log(f"  N={players} flagship ready in {time.perf_counter() - t0:.2f} s: "
+        f"n={s.mcp.unconstrained_dimension} m={s.mcp.constrained_dimension} "
+        f"T={st.num_blocks} b={st.block_size} m_t={st.rows_per_block} "
+        f"affine bands {s.mcp.affine_bands is not None}")
+    return s
+
+
+def block_backward_error(diag, lower, upper, rhs, x):
+    """Per system ‖Ax − r‖∞/(‖A‖∞‖x‖∞ + ‖r‖∞) of the whole block-tridiagonal
+    system, in float64."""
+    d, lo, up, r, x = (a.double() for a in (diag, lower, upper, rhs, x))
+    Ax = (d @ x[..., None])[..., 0]
+    Ax[:, 1:] += (lo @ x[:, :-1, :, None])[..., 0]
+    Ax[:, :-1] += (up @ x[:, 1:, :, None])[..., 0]
+    rows = d.abs().sum(dim=3)
+    rows[:, 1:] += lo.abs().sum(dim=3)
+    rows[:, :-1] += up.abs().sum(dim=3)
+    amax = lambda a: a.abs().flatten(1).amax(dim=1)
+    return amax(Ax - r) / (rows.flatten(1).amax(dim=1) * amax(x) + amax(r))
+
+
+def k3_check(name, args, fact):
+    """K3 against its plain version: returns the max absolute difference."""
+    import torch
+
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_solve_plain, cr_thomas_solve
+
+    xk = cr_thomas_solve(*args, fact=fact)
+    torch.cuda.synchronize()
+    xp = cr_solve_plain(*args, fact)
+    tag = str(args[0].dtype)[6:]
+    err = float((xk - xp).abs().max())
+    rel = err / max(float(xp.abs().max()), 1e-30)
+    bk, bp = block_backward_error(*args, xk), block_backward_error(*args, xp)
+    over = int((bk > torch.clamp(2 * bp, min=K3_BWD_TOL[tag])).sum())
+    log(f"  K3 {fact} {name} {tag}: max|kernel-plain|/max|plain|={rel:.3e} (tol "
+        f"{K3_TOL[tag]:g}); backward error kernel {float(bk.max()):.3e} plain "
+        f"{float(bp.max()):.3e} (tol {K3_BWD_TOL[tag]:.3e} or 2x plain; systems over: "
+        f"{over})")
+    check(bool(torch.isfinite(xk).all()), f"K3 {fact} {name}: non-finite kernel output")
+    check(rel <= K3_TOL[tag], f"K3 {fact} {name}: kernel and plain differ by {rel:.3e}")
+    check(over == 0, f"K3 {fact} {name}: kernel backward error {float(bk.max()):.3e}")
+    return err
+
+
+def phase_k3(real_lane_bands, n4, n10, device):
+    """K3 against its plain version on the card: the first Newton step's
+    bands of each flagship (gjp at N=4 in float32 and float64, gjpr at N=10
+    in float32; float64 at b=100 does not fit a block and is refused),
+    diagonally dominant random bands, qr on the lane-change bands (tier
+    "tridiag_pallas_cr") and at T=64, and a singular block. Returns
+    ({fact: N=4/N=10 float32 bands}, {fact: max abs error on them})."""
+    import torch
+
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_solve_plain, cr_thomas_solve
+
+    f32, f64 = torch.float32, torch.float64
+    bands, errs = {}, {}
+    for s, fact in ((n4, "gjp"), (n10, "gjpr")):
+        for dtype in (f32, f64):
+            real = first_newton_bands(s.mcp, s.thetas.to(dtype), s.x0.to(dtype))
+            b = real[0].shape[-1]
+            if dtype == f64 and b > 64:
+                try:
+                    cr_thomas_solve(*real, fact=fact)
+                except ValueError as exc:
+                    log(f"  K3 {fact} b={b} float64 refused as expected: {exc}")
+                    continue
+                raise PhaseFailed(f"K3 {fact}: b={b} float64 was not refused")
+            shape = "x".join(map(str, real[0].shape[:3]))
+            err = k3_check(f"first Newton step ({shape})", real, fact)
+            if dtype == f32:
+                bands[fact], errs[fact] = real, err
+        k3_check("random (8x30x{})".format(bands[fact][0].shape[-1]),
+                 random_bands((FLAG_B, FLAG_T, bands[fact][0].shape[-1]), f32, device, 41),
+                 fact)
+    k3_check("lane-change first Newton step (256x10x20)", real_lane_bands, "qr")
+    k3_check("random (16x64x20)", random_bands((16, 64, 20), f32, device, 42), "qr")
+    k3_check("random (3x13x6)", random_bands((3, 13, 6), f64, device, 43), "gjpr")
+    # A singular odd block in system 1: QR divides by its zero pivot (inf/NaN
+    # there only); Gauss–Jordan clamps the pivot and contracts with a zero
+    # head column (finite values, as the plain version).
+    diag, lower, upper, rhs = random_bands((4, 6, 40), f32, device, 44)
+    diag[1, 1, :, 3] = 0.0
+    diag[1, 1, 3, :] = 0.0
+    for fact in ("qr", "gjp", "gjpr"):
+        xk = cr_thomas_solve(diag, lower, upper, rhs, fact=fact)
+        torch.cuda.synchronize()
+        xp = cr_solve_plain(diag, lower, upper, rhs, fact)
+        bad_k = (~torch.isfinite(xk).flatten(1).all(dim=1)).tolist()
+        bad_p = (~torch.isfinite(xp).flatten(1).all(dim=1)).tolist()
+        ok = [0, 2, 3] if fact == "qr" else [0, 1, 2, 3]
+        diff = float((xk[ok] - xp[ok]).abs().max() / xp[ok].abs().max())
+        log(f"  K3 {fact} singular block: non-finite systems kernel={bad_k} plain={bad_p}, "
+            f"max|kernel-plain|/max|plain| over the others {diff:.3e}")
+        want = [False, True, False, False] if fact == "qr" else [False] * 4
+        check(bad_k == want and bad_p == want, f"K3 {fact} singular block: finiteness")
+        check(diff <= K3_TOL["float32"], f"K3 {fact} singular block: systems differ")
+    return bands, errs
+
+
+def run_flagship(name, s, options, stack, x0, fact):
+    """Solve ``stack`` (K, B, p) through solve_batches_streamed, CUDA-event
+    timed, with every launch count set to 0 just before and read just
+    after; certify each lane's true KKT in float32."""
+    import torch
+
+    from mcp_tpu_torch import SOLVED, batch_statistics, solve_batches_streamed
+    from mcp_tpu_torch.bench.harness import true_kkt_errors
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_thomas_solve
+    from mcp_tpu_torch.kernels.linesearch import linesearch_update
+    from mcp_tpu_torch.kernels.thomas import thomas_solve
+
+    K, Bn = stack.shape[:2]
+    thomas_solve.launches = linesearch_update.launches = 0
+    cr_thomas_solve.launches = dict.fromkeys(cr_thomas_solve.launches, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = solve_batches_streamed(s.mcp, stack, x0=x0, options=options)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t1
+    device_s = start.elapsed_time(end) / 1e3
+    launches = {"cr_thomas_solve": dict(cr_thomas_solve.launches),
+                "thomas": thomas_solve.launches, "linesearch": linesearch_update.launches}
+    tk = true_kkt_errors(s.mcp, res, stack)
+    tk64 = certify64(s.mcp, res, stack)
+    stats = batch_statistics(res)
+    solved = res.status == SOLVED
+    certified = int((solved & (tk <= options.tol)).sum())
+    stats.update(
+        instances=K * Bn, certified=certified,
+        certified_solves_per_s=certified / device_s, batch_latency_s=device_s / K,
+        true_kkt_max_solved=float(tk[solved].max()) if bool(solved.any()) else float("nan"),
+        true_kkt64_max_solved=(float(tk64[solved].max()) if bool(solved.any())
+                               else float("nan")),
+        window_s_events=device_s, window_s_host=wall_s, launches=launches,
+        tightening_rate=options.tightening_rate,
+    )
+    log(f"  {name} path: " + json.dumps(stats))
+    check(tuple(res.x.shape) == (K, Bn, s.mcp.unconstrained_dimension), f"{name}: shape")
+    check(bool(torch.isfinite(res.x[solved]).all()), f"{name}: non-finite solved x")
+    check(not bool((solved & (tk > options.tol)).any()),
+          f"{name}: a SOLVED lane has true KKT above tol")
+    check(launches["cr_thomas_solve"][fact] > 0, f"{name}: K3 {fact} never launched")
+    check(launches["linesearch"] > 0, f"{name}: K2 never launched")
+    check(thomas_solve.launches == 0, f"{name}: K1 launched on a K3 route")
+    return res, stats
+
+
+def phase_n4_path(n4, seed=2029):
+    """The N=4 flagship: K batches of B=8, each the base θ plus a 1e-4·N(0,1)
+    perturbation from a torch.Generator, cold-started from the zero-input
+    rollout, after one untimed warm batch."""
+    import torch
+
+    from mcp_tpu_torch import SolverOptions, auto_tightening_rate, solve_batch
+
+    options = SolverOptions(**N4_OPTIONS, tightening_rate=auto_tightening_rate(n4.mcp))
+    gen = torch.Generator().manual_seed(seed)
+    noise = lambda: 1e-4 * torch.randn(n4.thetas.shape, generator=gen, dtype=torch.float64)
+    dev, dt = n4.thetas.device, n4.thetas.dtype
+    warm = n4.thetas + noise().to(device=dev, dtype=dt)
+    stack = torch.stack([n4.thetas + noise().to(device=dev, dtype=dt)
+                         for _ in range(N4_BATCHES)])
+    solve_batch(n4.mcp, warm, x0=n4.x0, options=options)  # warm batch, untimed
+    res, stats = run_flagship("N=4", n4, options, stack, n4.x0, "gjp")
+    check(stats["success_rate"] >= N4_MIN_SUCCESS,
+          f"N=4: success {stats['success_rate']} < {N4_MIN_SUCCESS}")
+    return options, stack, res, stats
+
+
+def phase_n10_path(n10):
+    """The N=10 flagship: one batch of B=8 from the zero-input cold start."""
+    from mcp_tpu_torch import SolverOptions, auto_tightening_rate
+
+    options = SolverOptions(**N10_OPTIONS, tightening_rate=auto_tightening_rate(n10.mcp))
+    res, stats = run_flagship("N=10", n10, options, n10.thetas[None], n10.x0, "gjpr")
+    check(stats["success_rate"] >= N10_MIN_SUCCESS,
+          f"N=10: success {stats['success_rate']} < {N10_MIN_SUCCESS}")
+    return options, res, stats
+
+
+def phase_n4_reference(n4, options, stack, res):
+    """Two lanes of the last N=4 batch solved on the CPU in float64 with the
+    plain versions: the same status, x within a relative 1e-2."""
+    import torch
+
+    from mcp_tpu_torch import solve_batch
+
+    t0 = time.perf_counter()
+    cpu = flagship(4, batch=2, device="cpu")
+    th = stack[-1, :2].double().cpu()
+    ref = solve_batch(cpu.mcp, th, x0=n4.x0[:2].double().cpu(), options=options)
+    status, x = res.status[-1, :2].cpu(), res.x[-1, :2].double().cpu()
+    rel = float((ref.x - x).abs().max() / ref.x.abs().max())
+    log(f"  N=4 reference (CPU f64 plain) vs card (f32 kernels), 2 lanes: status "
+        f"{ref.status.tolist()} vs {status.tolist()}, iterations {ref.outer_iters.tolist()} "
+        f"vs {res.outer_iters[-1, :2].tolist()}, max|dx|/max|x|={rel:.3e} (tol "
+        f"{QP_REF_REL_TOL:g}), {time.perf_counter() - t0:.1f} s")
+    check(torch.equal(ref.status, status), "N=4 reference: status differs")
+    check(rel <= QP_REF_REL_TOL, f"N=4 reference: x differs by {rel:.3e}")
+
+
+def cr_counts(Bn, T, b, fact):
+    """(bytes, flops) of one float32 K3 solve with per-lane bands, counted
+    from the kernel's loops: inputs read once and x written once; per level
+    and odd block the augmented solve (elimination over every column, head
+    contraction and, for gjpr, the refinement; or Householder QR and back
+    substitution), the even-row products and the back substitution; the T=1
+    base per lane."""
+    nbytes = 4 * Bn * (T * b * b + 2 * (T - 1) * b * b + 2 * T * b)
+
+    def solve(nrhs):
+        nc = b + nrhs + (b if fact == "gjpr" else 0)
+        if fact == "qr":
+            fac = sum(2 * (b - k) + 4 * (b - k) * (nc - k) for k in range(b))
+            return fac + nrhs * sum(2 * (b - 1 - k) + 1 for k in range(b))
+        elim = b * (b + (2 * b - 1) * nc)
+        contract = 2 * b * b * (nc - b)
+        refine = 2 * b * nrhs * (2 * b + 1) if fact == "gjpr" else 0
+        return elim + contract + refine
+
+    flops, t = 0, T
+    nrhs = 2 * b + 1
+    while t > 1:
+        H = (t + (t & 1)) // 2
+        per_pair = solve(nrhs) + 2 * b * b * nrhs + b * (b + 1)  # U_e products
+        flops += H * per_pair + (H - 1) * 2 * b * b * nrhs  # L_e products
+        flops += H * (4 * b * b + 2 * b)  # back substitution
+        t = H
+    flops += solve(1)
+    return nbytes, Bn * flops
+
+
+def dense_block_system(diag, lower, upper, rhs):
+    """The block-tridiagonal system assembled dense, (B, Tb, Tb) and (B, Tb, 1)."""
+    import torch
+
+    Bn, T, b, _ = diag.shape
+    A = torch.zeros((Bn, T * b, T * b), dtype=diag.dtype, device=diag.device)
+    for t in range(T):
+        A[:, t * b:(t + 1) * b, t * b:(t + 1) * b] = diag[:, t]
+        if t > 0:
+            A[:, t * b:(t + 1) * b, (t - 1) * b:t * b] = lower[:, t - 1]
+            A[:, (t - 1) * b:t * b, t * b:(t + 1) * b] = upper[:, t - 1]
+    return A, rhs.reshape(Bn, T * b, 1).contiguous()
+
+
+def phase_k3_timing(bands, errs, n4_launches, n10_launches):
+    """K3 at both flagship shapes beside its bound, its plain version and a
+    dense torch.linalg.solve of the same system; K1 and K3 gjp on the N=4
+    bands at B=8 and B=128 (the card's data on the mid-block threshold)."""
+    import torch
+
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_solve_plain, cr_thomas_solve
+    from mcp_tpu_torch.kernels.thomas import thomas_solve
+
+    kernels = []
+    for fact, shape, replaces, lau, solves in (
+        ("gjp", "N=4", "mcp_tpu/kernels/thomas_pallas.py:1154", n4_launches,
+         N4_BATCHES * FLAG_B),
+        ("gjpr", "N=10", "mcp_tpu/kernels/thomas_pallas.py:1167", n10_launches, FLAG_B),
+    ):
+        args = bands[fact]
+        Bn, T, b, _ = args[0].shape
+        nbytes, flops = cr_counts(Bn, T, b, fact)
+        b_ms, b_by = bound(nbytes, flops)
+        A, r = dense_block_system(*args)
+        entry = {
+            "name": f"cr_thomas_solve[{fact}]", "route": "cuda",
+            "source": "mcp_tpu_torch/kernels/csrc/cyclic_reduction.cu",
+            "replaces": replaces, "launches": lau, "max_abs_err": errs[fact],
+            "ms": cuda_ms(lambda: cr_thomas_solve(*args, fact=fact), 30),
+            "plain_ms": cuda_ms(lambda: cr_solve_plain(*args, fact), 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lambda: torch.linalg.solve(A, r), 5),
+        }
+        kernels.append(entry)
+        log(f"  K3 {fact} {shape} ({Bn},{T},{b}): {entry['ms']:.4f} ms (plain "
+            f"{entry['plain_ms']:.3f} ms, bound {b_ms:.5f} ms by {b_by} [{flops / 1e9:.3f} "
+            f"GFLOP, {nbytes / 1e6:.2f} MB], dense solve {entry['library_ms']:.3f} ms); "
+            f"launches {lau} in the path window: {lau / max(solves // FLAG_B, 1):.2f} per "
+            f"batch, {lau / solves:.3f} per solve")
+    d, lo, up, r = bands["gjp"]
+    for rep in (1, 16):
+        args = tuple(a.repeat(rep, *([1] * (a.dim() - 1))).contiguous() for a in (d, lo, up, r))
+        k1 = cuda_ms(lambda: thomas_solve(*args), 10)
+        k3 = cuda_ms(lambda: cr_thomas_solve(*args, fact="gjp"), 10)
+        log(f"  mid-block threshold data, N=4 bands at B={args[0].shape[0]}: K1 (QR sweep) "
+            f"{k1:.4f} ms, K3 gjp {k3:.4f} ms")
+    return kernels
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -953,6 +1294,27 @@ def main() -> int:
     phase_profile(mcp, options, stack[0])
     log("phase 12: profile of one QP batch")
     phase_profile(qp_mcp, qp_options, qp_stack[0])
+    log("phase 13: K3 (cyclic reduction), and K2 at the flagship shapes, vs plain")
+    n4, n10 = flagship(4), flagship(10)
+    k3_bands, k3_errs = phase_k3(real_bands, n4, n10, device)
+    phase_k2(device, [(FLAG_B, s.mcp.unconstrained_dimension, s.mcp.constrained_dimension)
+                      for s in (n4, n10)])
+    log("phase 14: N=4 flagship path")
+    n4_options, n4_stack, n4_res, n4_stats = phase_n4_path(n4)
+    log("phase 15: N=10 flagship path")
+    n10_options, _, n10_stats = phase_n10_path(n10)
+    log("phase 16: N=4 reference check")
+    phase_n4_reference(n4, n4_options, n4_stack, n4_res)
+    log("phase 17: K3 timing")
+    kernels += phase_k3_timing(k3_bands, k3_errs,
+                               n4_stats["launches"]["cr_thomas_solve"]["gjp"],
+                               n10_stats["launches"]["cr_thomas_solve"]["gjpr"])
+    log("phase 18: profile of one N=4 flagship batch")
+    phase_profile(n4.mcp, n4_options, n4_stack[0], x0=n4.x0)
+    log(f"phase 19: profile of the N=10 flagship batch's first {N10_PROFILE_OUTER} outer "
+        "iterations")
+    phase_profile(n10.mcp, dataclasses.replace(n10_options, max_outer_iters=N10_PROFILE_OUTER),
+                  n10.thetas, x0=n10.x0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -139,7 +139,7 @@ def game_to_mcp(
         shared_mu = v[mu_blocking.total :]
         thetas = theta_blocking.split(theta)
 
-        # Each player's Lagrangian, differentiated in its own block.
+        # Each player's private Lagrangian, differentiated in its own block.
         def lagrangian(xi, i):
             xs_i = xs[:i] + (xi,) + xs[i + 1 :]
             p = problems[i]
@@ -148,15 +148,33 @@ def game_to_mcp(
                 L = L - lams[i] @ p.private_equality(xs_i, thetas[i])
             if p.private_inequality is not None:
                 L = L - mus[i] @ p.private_inequality(xs_i, thetas[i])
-            if shared_equality is not None:
-                L = L - shared_lam @ shared_equality(xs_i, thetas)
-            if shared_inequality is not None:
-                L = L - shared_mu @ shared_inequality(xs_i, thetas)
             return L
 
         grad_Ls = [
             grad(functools.partial(lagrangian, i=i))(xs[i]) for i in range(N)
         ]
+        g_shared, h_shared = [], []
+        if shared_equality is not None or shared_inequality is not None:
+            # The shared terms λ̃·g̃ + μ̃·h̃ enter every player's Lagrangian
+            # alike: one gradient over the joint primal gives each player's
+            # block, and one evaluation gives the residual rows (evaluating
+            # them once per player multiplied the residual's operation count
+            # by about N).
+            def shared(x):
+                xs_x = x_blocking.split(x)
+                S, vals = 0.0, ([], [])
+                if shared_equality is not None:
+                    vals[0].append(shared_equality(xs_x, thetas))
+                    S = S + shared_lam @ vals[0][0]
+                if shared_inequality is not None:
+                    vals[1].append(shared_inequality(xs_x, thetas))
+                    S = S + shared_mu @ vals[1][0]
+                return S, vals
+
+            grad_S, (g_shared, h_shared) = grad(shared, has_aux=True)(u[:nx])
+            grad_Ls = [
+                gL - gS for gL, gS in zip(grad_Ls, x_blocking.split(grad_S))
+            ]
         gs = [
             p.private_equality(xs, ti)
             for p, ti in zip(problems, thetas)
@@ -167,8 +185,6 @@ def game_to_mcp(
             for p, ti in zip(problems, thetas)
             if p.private_inequality is not None
         ]
-        g_shared = [] if shared_equality is None else [shared_equality(xs, thetas)]
-        h_shared = [] if shared_inequality is None else [shared_inequality(xs, thetas)]
         return (
             concat_blocks(grad_Ls + gs + g_shared, dtype=u.dtype),
             concat_blocks(hs + h_shared, dtype=u.dtype),

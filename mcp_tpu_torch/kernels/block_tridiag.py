@@ -8,9 +8,9 @@ duals couple adjacent steps. With T time blocks of size b the factorization
 costs O(T·b³) instead of O((Tb)³).
 
 Batch convention: the solver-path functions (``reconstruct_bands``,
-``gh_banded_fast``, ``banded_newton_step_compressed``,
-``block_thomas_solve``) take a leading batch axis B on every iterate-shaped
-argument. ``gh_banded`` and ``build_affine_bands`` work on one instance (the
+``gh_banded_fast``, ``banded_newton_step_compressed``, ``banded_jac_mv``,
+``block_thomas_solve``, ``block_cyclic_reduction_solve``) take a leading
+batch axis B on every iterate-shaped argument. ``gh_banded`` and ``build_affine_bands`` work on one instance (the
 game build probes them once).
 """
 
@@ -24,6 +24,7 @@ import torch
 from torch.func import jvp, vmap
 
 from .._device import const
+from .cyclic_reduction import cr_solve_plain
 
 Tensor = torch.Tensor
 
@@ -92,6 +93,16 @@ def block_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) 
         x_next = ds[t] - Cs[t] @ x_next
         xs[t] = x_next[..., 0]
     return torch.stack(xs, dim=1)
+
+
+def block_cyclic_reduction_solve(diag: Tensor, lower: Tensor, upper: Tensor,
+                                 rhs: Tensor) -> Tensor:
+    """Block cyclic reduction by per-block LU solves, batched, in
+    ``block_thomas_solve``'s layout (tier "tridiag_cr"): K3's recursion
+    (kernels/cyclic_reduction.py) with ``torch.linalg.solve`` in each block.
+    It pads an odd T where the JAX twin recurses on the uneven split and
+    solves T = 2 dense, so the two differ by rounding only."""
+    return cr_solve_plain(diag, lower, upper, rhs, "lu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -420,3 +431,28 @@ def banded_newton_step_compressed(
     dy = dy_blocks.reshape(B, -1)[:, rinv]
     ds = ds_blocks.reshape(B, -1)[:, rinv]
     return dx, dy, ds
+
+
+def banded_jac_mv(diag, lower, upper, Gy_blocks, Hx_blocks, y, s, dx, dy, ds,
+                  structure: TimeStructure):
+    """The true (unregularized) Jacobian–vector product in banded form over a
+    batch: (Gx·dx + Gy·dy, Hx·dx − ds, s∘dy + y∘ds), for the iterative
+    refinement of banded Mehrotra solves, from the same bands the
+    factorization consumed (``gh_banded_fast``'s layouts; lower/upper shared
+    by every lane or per lane). Vectors in the original variable order."""
+    B = dx.shape[0]
+    T, b, mt = structure.num_blocks, structure.block_size, structure.rows_per_block
+    perm, rperm, inv, rinv = _indices(structure, dx.device)
+    dxb = dx[:, perm].reshape(B, T, b)
+    dyb = dy[:, rperm].reshape(B, T, mt)
+    mv = lambda A, v: (A @ v[..., None])[..., 0]
+    zero_row = dx.new_zeros((B, 1, b))
+    # lower[t] couples row t+1 to column t; upper[t] row t to column t+1.
+    Gx_dx = (
+        mv(diag, dxb)
+        + torch.cat([zero_row, mv(lower, dxb[:, :-1])], dim=1)
+        + torch.cat([mv(upper, dxb[:, 1:]), zero_row], dim=1)
+    )
+    eG = (Gx_dx + mv(Gy_blocks, dyb)).reshape(B, -1)[:, inv]
+    eH = mv(Hx_blocks, dxb).reshape(B, -1)[:, rinv] - ds
+    return eG, eH, s * dy + y * ds

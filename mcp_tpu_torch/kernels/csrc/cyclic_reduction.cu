@@ -1,0 +1,621 @@
+// K3: batched block-tridiagonal solve by block cyclic reduction, for sm_90a,
+// with three in-block factorizations: Householder QR ("qr"), Gauss-Jordan
+// with implicit partial pivoting ("gjp") and gjp plus one explicit-inverse
+// refinement step ("gjpr").
+//
+// Replaces mcp_tpu/kernels/thomas_pallas.py::_thomas_kernel_cr_packed
+// (:1154) and ::_thomas_kernel_cr_split (:1167), i.e. _cr_solve (:1055) with
+// the facts _qr_solve_aug (:33), _gjp_solve_aug (:110) and _gjpr_solve_aug
+// (:396). One source covers both TPU kernels: their split is a lane-packing
+// rule (3b+1 <= 128) of the TPU.
+//
+// What it computes (cyclic_reduction.cr_solve_plain is the same algebra in
+// PyTorch): an odd T is padded with a decoupled identity block; each level
+// solves every odd block o = 2k+1 against [L_o | U_o | r_o], folds the
+// results into the even rows
+//   D'_k = (D_e - U_e D_o^-1 L_o) - L_e D_{o-2}^-1 U_{o-2},  r'_k likewise,
+//   L'_k = -(L_e D_{o-2}^-1 L_{o-2}),  U'_k = -(U_e D_o^-1 U_o),
+// recurses on the half-size system, solves the T=1 base [D | r] and
+// back-substitutes x_o = (D_o^-1 r_o - D_o^-1 L_o x_e) - D_o^-1 U_o x_{e+2}.
+// The Gauss-Jordan elimination rounds each product and difference on its
+// own (__fmul_rn / __fsub_rn, no FMA contraction) in the plain version's
+// order, pivot choice included (largest |entry| among unused rows, first
+// row on ties, used rows scored -1, no pivot at all when a score is NaN);
+// the head contraction, the refinement products and the level products sum
+// in another order than the plain version's matmuls.
+//
+// Bound on this card: at the N=4 flagship (B=8, T=30, b=40, gjp, float32)
+// the solve reads the bands and the right side once (4.6 MB, 1.4 us at
+// 3.35 TB/s) and does 0.27 GFLOP (chip_smoke.cr_counts, every column of the
+// elimination included): 4.1 us at the 67 TFLOP/s float32 rate, bound by
+// operations; at the N=10 flagship (b=100, gjpr) 7.1 GFLOP, 106 us. In
+// practice neither binds: every elimination step is a serial link with
+// three block-wide barriers (b steps per system and level), and the levels
+// run one after another with fewer systems each (120, 64, 32, 16, 8 blocks
+// at T=30, B=8 against 132 SMs).
+//
+// Design (simple and correct first): host-side recursion over the static
+// level shapes; per level one launch of the odd-block solve, one thread
+// block per (odd block, lane), whose [D | L | U | r (| I)] matrix lives in
+// shared memory (b x (3b+1), plus b identity columns for gjpr: 160.4 KB at
+// b=100 in float32, above 48 KB by dynamic shared memory after
+// cudaFuncSetAttribute). The same block then forms the even-row products
+// that need its own solution: D - U_e D_o^-1 L_o, r - U_e D_o^-1 r_o and
+// U'_k for its pair, and L_e D_o^-1 U_o, L_e D_o^-1 r_o and L'_{k+1} for
+// the next pair (written to separate arrays that the next level subtracts
+// on load, in the plain version's order). Then one launch for the T=1
+// base, and one back-substitution launch per level. The head contraction
+// and the gjpr refinement run in place, a b x chunk column slab at a time,
+// so gjpr at b=100 fits. The wrapper refuses shapes whose matrix does not
+// fit a block (gjp/gjpr/qr at b=100 in float64).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunk = 64;
+constexpr size_t kSmemLimit = 232448;
+enum Fact { kQR = 0, kGJP = 1, kGJPR = 2 };
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float dsqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double dsqrt(double v) { return sqrt(v); }
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// One level's bands in padded form: L(t) couples t to t-1 (zero at t = 0),
+// U(t) couples t to t+1 (zero at the last block), blocks t >= nT are the
+// identity pad. D(t) = D[t] - Dq[t] and r(t) = r[t] - rq[t] when Dq / rq
+// are given (the two halves of the previous level's even-row update).
+template <typename T>
+struct Level {
+  const T* D;
+  const T* Dq;
+  const T* L;
+  const T* U;
+  const T* r;
+  const T* rq;
+  long long d_bs, l_bs, u_bs, r_bs;  // lane strides (elements)
+  int nT;
+  int l_off;  // L(t) is stored at index t - l_off
+};
+
+template <typename T>
+__device__ __forceinline__ T D_at(const Level<T>& v, long long z, int t, int i, int j, int b) {
+  if (t >= v.nT) return i == j ? T(1) : T(0);
+  const long long o = z * v.d_bs + (long long)t * b * b + i * b + j;
+  return v.Dq ? sub_rn(v.D[o], v.Dq[o]) : v.D[o];
+}
+
+template <typename T>
+__device__ __forceinline__ T L_at(const Level<T>& v, long long z, int t, int i, int j, int b) {
+  if (t == 0 || t >= v.nT) return T(0);
+  return v.L[z * v.l_bs + (long long)(t - v.l_off) * b * b + i * b + j];
+}
+
+template <typename T>
+__device__ __forceinline__ T U_at(const Level<T>& v, long long z, int t, int i, int j, int b) {
+  if (t >= v.nT - 1) return T(0);
+  return v.U[z * v.u_bs + (long long)t * b * b + i * b + j];
+}
+
+template <typename T>
+__device__ __forceinline__ T r_at(const Level<T>& v, long long z, int t, int i, int b) {
+  if (t >= v.nT) return T(0);
+  const long long o = z * v.r_bs + (long long)t * b + i;
+  return v.rq ? sub_rn(v.r[o], v.rq[o]) : v.r[o];
+}
+
+// The original augmented matrix of an odd block: [D_o | L_o | U_o | r_o].
+template <typename T>
+struct OddBlock {
+  Level<T> v;
+  long long z;
+  int t, b;
+  __device__ T operator()(int i, int j) const {
+    if (j < b) return D_at(v, z, t, i, j, b);
+    if (j < 2 * b) return L_at(v, z, t, i, j - b, b);
+    if (j < 3 * b) return U_at(v, z, t, i, j - 2 * b, b);
+    return r_at(v, z, t, i, b);
+  }
+};
+
+// The original augmented matrix of the base: [D_0 | r_0].
+template <typename T>
+struct BaseBlock {
+  Level<T> v;
+  long long z;
+  int b;
+  __device__ T operator()(int i, int j) const {
+    return j < b ? D_at(v, z, 0, i, j, b) : r_at(v, z, 0, i, b);
+  }
+};
+
+template <typename T>
+struct Smem {
+  T* M;        // b x nc
+  T* va;       // b: used flags (gj) or the Householder vector (qr)
+  T* vb;       // b: multipliers (gj)
+  T* vc;       // nc: pivot row (gj) or u^T M (qr)
+  T* sc;       // 4 scalars
+  T* scratch;  // b x chunk
+};
+
+template <typename T>
+__device__ Smem<T> carve(int b, int nc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<T> s;
+  s.M = reinterpret_cast<T*>(smem_raw);
+  s.va = s.M + (size_t)b * nc;
+  s.vb = s.va + b;
+  s.vc = s.vb + b;
+  s.sc = s.vc + nc;
+  s.scratch = s.sc + 4;
+  return s;
+}
+
+// Gauss-Jordan with implicit partial pivoting on every column of M (b x nc).
+template <typename T>
+__device__ void gjp_eliminate(const Smem<T>& s, int b, int nc) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ int s_first;
+  T* M = s.M;
+  T* used = s.va;
+  T* f = s.vb;
+  T* prow = s.vc;
+  const T eps = T(1e-30);
+  for (int i = tid; i < b; i += kThreads) used[i] = T(0);
+  __syncthreads();
+  for (int k = 0; k < b; ++k) {
+    if (warp == 0) {
+      T best = T(0);
+      int bi = b;
+      int seen = 0, nan = 0;
+      for (int i = lane; i < b; i += 32) {
+        const T c = M[i * nc + k];
+        const T u = used[i];
+        const T sc = sub_rn(mul_rn(c >= T(0) ? c : -c, sub_rn(T(1), u)), u);
+        if (sc != sc) {
+          nan = 1;
+        } else if (!seen || sc > best) {  // rows ascend: ties keep the first
+          best = sc;
+          bi = i;
+          seen = 1;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const T ob = __shfl_xor_sync(0xffffffffu, best, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        const int os = __shfl_xor_sync(0xffffffffu, seen, off);
+        if (os && (!seen || ob > best || (ob == best && oi < bi))) {
+          best = ob;
+          bi = oi;
+          seen = 1;
+        }
+      }
+      nan = __any_sync(0xffffffffu, nan);
+      if (lane == 0) {
+        const int p = (nan || !seen) ? b : bi;
+        const T piv = p < b ? M[p * nc + k] : T(0);
+        const T ap = piv >= T(0) ? piv : -piv;
+        s.sc[0] = T(1) / (ap > eps ? piv : eps);
+        s_first = p;
+      }
+    }
+    __syncthreads();
+    const int p = s_first;
+    const T inv = s.sc[0];
+    for (int j = tid; j < nc; j += kThreads) prow[j] = p < b ? M[p * nc + j] : T(0);
+    for (int i = tid; i < b; i += kThreads) f[i] = mul_rn(M[i * nc + k], inv);
+    __syncthreads();
+    for (int i = warp; i < b; i += kWarps) {
+      T* row = M + i * nc;
+      if (i == p) {
+        for (int j = lane; j < nc; j += 32) row[j] = mul_rn(prow[j], inv);
+      } else {
+        const T fi = f[i];
+        for (int j = lane; j < nc; j += 32) row[j] = sub_rn(row[j], mul_rn(fi, prow[j]));
+      }
+    }
+    if (tid == 0 && p < b) used[p] = T(1);
+    __syncthreads();
+  }
+}
+
+// M[:, b:] <- head^T M[:, b:] in place (head = M[:, :b]), `chunk` columns at
+// a time through the scratch slab.
+template <typename T>
+__device__ void contract_head(const Smem<T>& s, int b, int nc, int chunk) {
+  const int tid = threadIdx.x;
+  T* M = s.M;
+  for (int c0 = b; c0 < nc; c0 += chunk) {
+    const int w = min(chunk, nc - c0);
+    for (int e = tid; e < b * w; e += kThreads) {
+      const int k = e / w, c = e - k * w;
+      T acc = T(0);
+      for (int j = 0; j < b; ++j) acc += M[j * nc + k] * M[j * nc + c0 + c];
+      s.scratch[e] = acc;
+    }
+    __syncthreads();
+    for (int e = tid; e < b * w; e += kThreads) {
+      const int k = e / w, c = e - k * w;
+      M[k * nc + c0 + c] = s.scratch[e];
+    }
+    __syncthreads();
+  }
+}
+
+// Householder QR without pivoting of M[:, :b], applied to every column from
+// k on, then back substitution in place: M[:, b:] <- X.
+template <typename T>
+__device__ void qr_solve(const Smem<T>& s, int b, int nc) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  T* M = s.M;
+  T* u = s.va;
+  T* w = s.vc;
+  const T eps = T(1e-30);
+  for (int k = 0; k < b; ++k) {
+    if (warp == 0) {
+      T ss = T(0);
+      for (int i = k + lane; i < b; i += 32) {
+        const T v = M[i * nc + k];
+        ss += v * v;
+      }
+      ss = warp_sum(ss);
+      if (lane == 0) {
+        const T vk = M[k * nc + k];
+        const T norm = dsqrt(ss + eps);
+        const T sgn = vk >= T(0) ? T(1) : T(-1);
+        const T avk = vk >= T(0) ? vk : -vk;
+        u[k] = vk + sgn * norm;
+        s.sc[0] = T(1) / (norm * (norm + avk) + eps);
+      }
+      for (int i = k + 1 + lane; i < b; i += 32) u[i] = M[i * nc + k];
+    }
+    __syncthreads();
+    for (int j = k + tid; j < nc; j += kThreads) {
+      T acc = T(0);
+      for (int i = k; i < b; ++i) acc += u[i] * M[i * nc + j];
+      w[j] = acc;
+    }
+    __syncthreads();
+    const T beta = s.sc[0];
+    for (int i = k + warp; i < b; i += kWarps) {
+      const T bu = beta * u[i];
+      for (int j = k + lane; j < nc; j += 32) M[i * nc + j] -= bu * w[j];
+    }
+    __syncthreads();
+  }
+  for (int c = b + tid; c < nc; c += kThreads) {
+    for (int k = b - 1; k >= 0; --k) {
+      T acc = M[k * nc + c];
+      for (int j = k + 1; j < b; ++j) acc -= M[k * nc + j] * M[j * nc + c];
+      M[k * nc + c] = acc / M[k * nc + k];
+    }
+  }
+  __syncthreads();
+}
+
+// Load the augmented matrix [orig | I (gjpr)] and solve it in place: on
+// return M[:, b : b + nrhs] holds X with orig[:, :b] X = orig[:, b:].
+template <typename T, int FACT, typename Orig>
+__device__ void solve_aug(const Smem<T>& s, int b, int nrhs, int chunk, const Orig& orig) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nc = b + nrhs + (FACT == kGJPR ? b : 0);
+  T* M = s.M;
+  for (int i = warp; i < b; i += kWarps)
+    for (int j = lane; j < nc; j += 32)
+      M[i * nc + j] = j < b + nrhs ? orig(i, j) : (j - b - nrhs == i ? T(1) : T(0));
+  __syncthreads();
+  if (FACT == kQR) {
+    qr_solve(s, b, nc);
+    return;
+  }
+  gjp_eliminate(s, b, nc);
+  contract_head(s, b, nc, chunk);
+  if (FACT != kGJPR) return;
+  // X <- X + A^-1 (N - A X): A into the head (free after the contraction),
+  // A^-1 at columns b + nrhs.., then a chunk of X columns at a time.
+  for (int i = warp; i < b; i += kWarps)
+    for (int j = lane; j < b; j += 32) M[i * nc + j] = orig(i, j);
+  __syncthreads();
+  for (int c0 = 0; c0 < nrhs; c0 += chunk) {
+    const int w = min(chunk, nrhs - c0);
+    for (int e = tid; e < b * w; e += kThreads) {
+      const int i = e / w, c = e - i * w;
+      T acc = T(0);
+      for (int m = 0; m < b; ++m) acc += M[i * nc + m] * M[m * nc + b + c0 + c];
+      s.scratch[e] = orig(i, b + c0 + c) - acc;
+    }
+    __syncthreads();
+    for (int e = tid; e < b * w; e += kThreads) {
+      const int i = e / w, c = e - i * w;
+      T acc = T(0);
+      for (int m = 0; m < b; ++m) acc += M[i * nc + b + nrhs + m] * s.scratch[m * w + c];
+      M[i * nc + b + c0 + c] = add_rn(M[i * nc + b + c0 + c], acc);
+    }
+    __syncthreads();
+  }
+}
+
+// One level: odd block o = 2k+1 of lane z, then its even-row products.
+template <typename T, int FACT>
+__global__ void __launch_bounds__(kThreads) cr_reduce_kernel(
+    Level<T> in, int b, int H, int chunk, T* __restrict__ sol, T* __restrict__ Dp,
+    T* __restrict__ Dq, T* __restrict__ rp, T* __restrict__ rq, T* __restrict__ Ln,
+    T* __restrict__ Un) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k = blockIdx.x;
+  const long long z = blockIdx.y;
+  const int nrhs = 2 * b + 1;
+  const int nc = b + nrhs + (FACT == kGJPR ? b : 0);
+  const Smem<T> s = carve<T>(b, nc);
+  T* M = s.M;
+  const int o = 2 * k + 1, e = 2 * k;
+  solve_aug<T, FACT>(s, b, nrhs, chunk, OddBlock<T>{in, z, o, b});
+
+  // [D_o^-1 L_o | D_o^-1 U_o | D_o^-1 r_o] for the back substitution.
+  const long long bb = (long long)b * b;
+  const long long pair = z * H + k;
+  for (int i = warp; i < b; i += kWarps)
+    for (int j = lane; j < nrhs; j += 32) sol[(pair * b + i) * nrhs + j] = M[i * nc + b + j];
+  // U_e into the head: D_e - U_e D_o^-1 L_o, -(U_e D_o^-1 U_o), r_e - U_e D_o^-1 r_o.
+  for (int i = warp; i < b; i += kWarps)
+    for (int j = lane; j < b; j += 32) M[i * nc + j] = U_at(in, z, e, i, j, b);
+  __syncthreads();
+  for (int i = warp; i < b; i += kWarps) {
+    for (int j = lane; j < nrhs; j += 32) {
+      T acc = T(0);
+      for (int m = 0; m < b; ++m) acc += M[i * nc + m] * M[m * nc + b + j];
+      if (j < b) {
+        Dp[pair * bb + i * b + j] = sub_rn(D_at(in, z, e, i, j, b), acc);
+      } else if (j < 2 * b) {
+        Un[pair * bb + i * b + (j - b)] = -acc;
+      } else {
+        rp[pair * b + i] = sub_rn(r_at(in, z, e, i, b), acc);
+      }
+    }
+  }
+  __syncthreads();
+  if (k + 1 < H) {
+    // L_{e+2} into the head: L_e D_o^-1 U_o, L_e D_o^-1 r_o, -(L_e D_o^-1 L_o)
+    // of pair k+1.
+    for (int i = warp; i < b; i += kWarps)
+      for (int j = lane; j < b; j += 32) M[i * nc + j] = L_at(in, z, e + 2, i, j, b);
+    __syncthreads();
+    const long long nxt = pair + 1;
+    for (int i = warp; i < b; i += kWarps) {
+      for (int j = lane; j < nrhs; j += 32) {
+        T acc = T(0);
+        for (int m = 0; m < b; ++m) acc += M[i * nc + m] * M[m * nc + b + j];
+        if (j < b) {
+          Ln[nxt * bb + i * b + j] = -acc;
+        } else if (j < 2 * b) {
+          Dq[nxt * bb + i * b + (j - b)] = acc;
+        } else {
+          rq[nxt * b + i] = acc;
+        }
+      }
+    }
+  }
+  if (k == 0) {  // pair 0 has no previous odd block
+    for (int q = tid; q < b * b; q += kThreads) {
+      Dq[pair * bb + q] = T(0);
+      Ln[pair * bb + q] = T(0);
+    }
+    for (int i = tid; i < b; i += kThreads) rq[pair * b + i] = T(0);
+  }
+}
+
+// The T=1 base: x = D^-1 r per lane.
+template <typename T, int FACT>
+__global__ void __launch_bounds__(kThreads) cr_base_kernel(Level<T> in, int b, int chunk,
+                                                           T* __restrict__ x) {
+  const int nc = b + 1 + (FACT == kGJPR ? b : 0);
+  const long long z = blockIdx.y;
+  const Smem<T> s = carve<T>(b, nc);
+  solve_aug<T, FACT>(s, b, 1, chunk, BaseBlock<T>{in, z, b});
+  for (int i = threadIdx.x; i < b; i += kThreads) x[z * b + i] = s.M[i * nc + b];
+}
+
+// Back substitution of one level: x[2k] = x_e[k], x[2k+1] = (Dr - DL x_e[k])
+// - DU x_e[k+1] (x_e[H] = 0); writes only blocks t < out_T.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) cr_backsub_kernel(
+    const T* __restrict__ sol, const T* __restrict__ xe, int xe_T, int b, int H,
+    T* __restrict__ x, int out_T) {
+  const int k = blockIdx.x;
+  const long long z = blockIdx.y;
+  const int nrhs = 2 * b + 1;
+  const T* S = sol + (z * H + k) * (long long)b * nrhs;
+  const T* x0 = xe + (z * xe_T + k) * (long long)b;
+  const T* x1 = x0 + b;
+  T* out = x + z * (long long)out_T * b;
+  for (int i = threadIdx.x; i < b; i += kThreads) {
+    const T* row = S + (long long)i * nrhs;
+    T a = T(0), c = T(0);
+    for (int m = 0; m < b; ++m) a += row[m] * x0[m];
+    if (k + 1 < H)
+      for (int m = 0; m < b; ++m) c += row[b + m] * x1[m];
+    if (2 * k < out_T) out[(long long)(2 * k) * b + i] = x0[i];
+    if (2 * k + 1 < out_T) out[(long long)(2 * k + 1) * b + i] = sub_rn(sub_rn(row[2 * b], a), c);
+  }
+}
+
+// The static level shapes: level l has nT real blocks, padded to an even
+// Tp, and H = Tp / 2 pairs; the next level has H blocks. The base has 1.
+struct Plan {
+  int nlev;
+  int nT[32], H[32];
+};
+
+Plan make_plan(int T) {
+  Plan p{};
+  int t = T;
+  while (t > 1) {
+    p.nT[p.nlev] = t;
+    p.H[p.nlev] = (t + (t & 1)) / 2;
+    t = p.H[p.nlev];
+    ++p.nlev;
+  }
+  return p;
+}
+
+size_t smem_bytes(int b, int nc, size_t sz, int chunk) {
+  // cyclic_reduction.check_fits refuses what does not fit at chunk = 1.
+  return sz * ((size_t)b * nc + 2 * b + nc + 4 + (size_t)b * chunk);
+}
+
+int pick_chunk(int b, int nc, size_t sz) {
+  const size_t base = smem_bytes(b, nc, sz, 0);
+  if (base + sz * b > kSmemLimit) return 0;
+  const size_t avail = (kSmemLimit - base) / (sz * b);
+  return (int)(avail < (size_t)kMaxChunk ? avail : kMaxChunk);
+}
+
+template <typename K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+// Workspace elements, in layout order: per level sol, Dp, Dq, Ln, Un, rp, rq,
+// then each level's solution x (levels >= 1; level 0 writes the output),
+// then the base's x.
+long long workspace_elems(int B, int T, int b) {
+  const Plan p = make_plan(T);
+  long long n = 0;
+  for (int l = 0; l < p.nlev; ++l) {
+    const long long H = p.H[l];
+    n += B * H * b * (2LL * b + 1) + 4LL * B * H * b * b + 2LL * B * H * b;
+    if (l > 0) n += (long long)B * 2 * p.H[l] * b;
+  }
+  return n + (long long)B * b;
+}
+
+template <typename T, int FACT>
+int solve(const T* diag, const T* lower, const T* upper, const T* rhs, T* work, T* x, int B,
+          int T_, int b, long long lower_bs, long long upper_bs, cudaStream_t stream) {
+  const Plan p = make_plan(T_);
+  const size_t sz = sizeof(T);
+  const int nc_red = 3 * b + 1 + (FACT == kGJPR ? b : 0);
+  const int nc_base = b + 1 + (FACT == kGJPR ? b : 0);
+  const int chunk = pick_chunk(b, nc_red, sz);
+  if (chunk == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem_red = smem_bytes(b, nc_red, sz, chunk);
+  const size_t smem_base = smem_bytes(b, nc_base, sz, chunk);
+  int err = allow_smem(cr_reduce_kernel<T, FACT>, smem_red);
+  if (err) return err;
+  err = allow_smem(cr_base_kernel<T, FACT>, smem_base);
+  if (err) return err;
+
+  // Carve the workspace.
+  T* sol[32];
+  T* Dp[32];
+  T* Dq[32];
+  T* Ln[32];
+  T* Un[32];
+  T* rp[32];
+  T* rq[32];
+  T* xl[33];
+  T* w = work;
+  const long long bb = (long long)b * b;
+  for (int l = 0; l < p.nlev; ++l) {
+    const long long H = p.H[l];
+    sol[l] = w;
+    w += B * H * b * (2LL * b + 1);
+    Dp[l] = w;
+    w += B * H * bb;
+    Dq[l] = w;
+    w += B * H * bb;
+    Ln[l] = w;
+    w += B * H * bb;
+    Un[l] = w;
+    w += B * H * bb;
+    rp[l] = w;
+    w += B * H * b;
+    rq[l] = w;
+    w += B * H * b;
+  }
+  xl[0] = x;
+  for (int l = 1; l < p.nlev; ++l) {
+    xl[l] = w;
+    w += (long long)B * 2 * p.H[l] * b;
+  }
+  xl[p.nlev] = (p.nlev == 0) ? x : w;
+
+  Level<T> lev{diag, nullptr, lower, upper, rhs, nullptr,
+               (long long)T_ * bb, lower_bs, upper_bs, (long long)T_ * b, T_, 1};
+  for (int l = 0; l < p.nlev; ++l) {
+    const int H = p.H[l];
+    cr_reduce_kernel<T, FACT><<<dim3(H, B), kThreads, smem_red, stream>>>(
+        lev, b, H, chunk, sol[l], Dp[l], Dq[l], rp[l], rq[l], Ln[l], Un[l]);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    lev = Level<T>{Dp[l], Dq[l], Ln[l], Un[l], rp[l], rq[l],
+                   H * bb, H * bb, H * bb, (long long)H * b, H, 0};
+  }
+  cr_base_kernel<T, FACT><<<dim3(1, B), kThreads, smem_base, stream>>>(lev, b, chunk,
+                                                                       xl[p.nlev]);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  for (int l = p.nlev - 1; l >= 0; --l) {
+    const int H = p.H[l];
+    const int xe_T = (l + 1 < p.nlev) ? 2 * p.H[l + 1] : 1;
+    const int out_T = (l == 0) ? T_ : 2 * H;
+    cr_backsub_kernel<T><<<dim3(H, B), kThreads, 0, stream>>>(sol[l], xl[l + 1], xe_T, b, H,
+                                                              xl[l], out_T);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return 0;
+}
+
+template <typename T>
+int dispatch(int fact, const void* diag, const void* lower, const void* upper,
+             const void* rhs, void* work, void* x, int B, int T_, int b, long long lbs,
+             long long ubs, cudaStream_t s) {
+  const T* d = static_cast<const T*>(diag);
+  const T* lo = static_cast<const T*>(lower);
+  const T* up = static_cast<const T*>(upper);
+  const T* r = static_cast<const T*>(rhs);
+  T* wk = static_cast<T*>(work);
+  T* xx = static_cast<T*>(x);
+  if (fact == kQR) return solve<T, kQR>(d, lo, up, r, wk, xx, B, T_, b, lbs, ubs, s);
+  if (fact == kGJP) return solve<T, kGJP>(d, lo, up, r, wk, xx, B, T_, b, lbs, ubs, s);
+  return solve<T, kGJPR>(d, lo, up, r, wk, xx, B, T_, b, lbs, ubs, s);
+}
+
+}  // namespace
+
+// Elements of the workspace buffer mcp_cr_solve needs for (B, T, b).
+extern "C" long long mcp_cr_workspace(int B, int T, int b) { return workspace_elems(B, T, b); }
+
+// dtype: 0 = float32, 1 = float64; fact: 0 = qr, 1 = gjp, 2 = gjpr. Layouts
+// (row-major, contiguous within a system): diag (B,T,b,b), lower/upper
+// (B,T-1,b,b) with a lane stride of `*_bs` elements (0 = one band shared by
+// every lane), rhs (B,T,b), work (mcp_cr_workspace elements), x (B,T,b).
+// Launches on `stream`; returns the first CUDA error (0 on success).
+extern "C" int mcp_cr_solve(int dtype, int fact, const void* diag, const void* lower,
+                            const void* upper, const void* rhs, void* work, void* x, int B,
+                            int T, int b, long long lower_bs, long long upper_bs,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(fact, diag, lower, upper, rhs, work, x, B, T, b, lower_bs,
+                           upper_bs, s);
+  return dispatch<double>(fact, diag, lower, upper, rhs, work, x, B, T, b, lower_bs, upper_bs,
+                          s);
+}

@@ -80,14 +80,17 @@ def thomas_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) 
     return torch.stack(xs, dim=1)
 
 
-def _check(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor):
+def _check(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, name="thomas_solve",
+           max_block=MAX_BLOCK):
+    """Shapes, dtypes, devices and contiguity of a block-tridiagonal solve's
+    operands (K1's layout, shared by K3)."""
     if diag.dim() != 4 or diag.shape[2] != diag.shape[3]:
         raise ValueError(f"diag must be (B, T, b, b), got {tuple(diag.shape)}")
     B, T, b, _ = diag.shape
     if T < 1:
-        raise ValueError("thomas_solve needs T >= 1")
-    if b > MAX_BLOCK:
-        raise ValueError(f"thomas_solve takes blocks up to b={MAX_BLOCK}, got b={b}")
+        raise ValueError(f"{name} needs T >= 1")
+    if max_block is not None and b > max_block:
+        raise ValueError(f"{name} takes blocks up to b={max_block}, got b={b}")
     for name, a in (("lower", lower), ("upper", upper)):
         if tuple(a.shape) != (B, T - 1, b, b):
             raise ValueError(
@@ -99,7 +102,7 @@ def _check(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor):
         if a.dtype != diag.dtype or a.device != diag.device:
             raise ValueError("diag, lower, upper, rhs must share dtype and device")
     if diag.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"thomas_solve takes float32/float64, got {diag.dtype}")
+        raise ValueError(f"{name} takes float32/float64, got {diag.dtype}")
     if not (diag.is_contiguous() and rhs.is_contiguous()):
         raise ValueError("diag and rhs must be contiguous")
 

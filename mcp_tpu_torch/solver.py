@@ -28,8 +28,13 @@ while its live mask has a lane, and a lane outside the mask is frozen with
 ``torch.where`` (never by multiplying by 0: 0·NaN = NaN). Each loop test is
 one host sync (a ``.any()`` read).
 
-Linear-solver tiers: the banded ``"tridiag_pallas"`` (trajectory games:
-K1 sweep, fused K2 linesearch) and the dense tiers of ``linalg.py``
+Linear-solver tiers: the banded tiers of trajectory games (``BANDED_SOLVERS``:
+``"tridiag"`` and ``"tridiag_cr"``, the plain LU block-Thomas and cyclic
+reduction; ``"tridiag_pallas"`` → K1; ``"tridiag_pallas_cr"``,
+``"tridiag_pallas_crgjp"``, ``"tridiag_pallas_crgjpr"`` → K3 with the qr,
+gjp and gjpr factorizations; ``"tridiag_auto"``, the JAX package's shape-
+and batch-aware route to K1 or K3; the fused K2 linesearch on
+``"tridiag_pallas"`` and ``"tridiag_auto"``) and the dense tiers of ``linalg.py``
 (``"dense"``, ``"condensed"``, ``"schur"``, ``"schur_pallas"`` → K4b/K4c,
 ``"schur_pallas_gj"`` → K4a, ``"schur_pallas_gjr"`` → K5). The dense tiers
 linearize by ``_make_linearizer``: an affine MCP (the QP benchmark) has its
@@ -40,6 +45,7 @@ yet raise ``NotImplementedError`` naming the ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from typing import Optional
@@ -48,9 +54,17 @@ import torch
 from torch.func import vmap
 from torch.profiler import record_function
 
-from .kernels.block_tridiag import banded_newton_step_compressed, gh_banded_fast
+from .kernels.block_tridiag import (
+    banded_jac_mv,
+    banded_newton_step_compressed,
+    block_cyclic_reduction_solve,
+    block_thomas_solve,
+    gh_banded_fast,
+)
+from .kernels.cyclic_reduction import cr_thomas_solve
 from .kernels.linesearch import _candidate_tensor, linesearch_update
 from .kernels.thomas import thomas_solve
+from .kernels.thomas_dispatch import auto_thomas_solve
 from .linalg import GMRES_NOT_PORTED, NEWTON_STEPS, factored_newton_solver
 from .mcp import PrimalDualMCP
 from .types import FAILED, SOLVED, SolveResult
@@ -99,7 +113,8 @@ class SolverOptions:
     gmres_restart: int = 50
     gmres_maxiter: int = 5
     gmres_preconditioner: str = "none"
-    # None = the fused K2 linesearch exactly for the "tridiag_pallas" tier.
+    # None = the fused K2 linesearch exactly for "tridiag_pallas" and
+    # "tridiag_auto".
     fused_linesearch: Optional[bool] = None
     # Newton-system regularization; None = tol·I.
     regularization: Optional[float] = None
@@ -165,14 +180,41 @@ def fraction_to_the_boundary_linesearch_pair(
     ).reshape(v.shape[:-1])
 
 
+#: Banded tier → the block-tridiagonal solve (diag, lower, upper, rhs) → x
+#: that its Newton step runs (the JAX package's ``_tridiag_algorithm``).
+BANDED_SOLVERS = {
+    "tridiag": block_thomas_solve,
+    "tridiag_cr": block_cyclic_reduction_solve,
+    "tridiag_pallas": thomas_solve,
+    "tridiag_pallas_cr": functools.partial(cr_thomas_solve, fact="qr"),
+    "tridiag_pallas_crgjp": functools.partial(cr_thomas_solve, fact="gjp"),
+    "tridiag_pallas_crgjpr": functools.partial(cr_thomas_solve, fact="gjpr"),
+    "tridiag_auto": auto_thomas_solve,
+}
+#: The JAX package's other banded tiers, with the kernel each still needs.
+_UNPORTED_BANDED = {
+    **dict.fromkeys(
+        ("tridiag_pallas_gj", "tridiag_pallas_gjp", "tridiag_pallas_gjpr"),
+        "K7a (the sweep with the gj/gjp/gjpr facts)",
+    ),
+    **dict.fromkeys(
+        ("tridiag_pallas_crgj", "tridiag_pallas_crgjb", "tridiag_pallas_crgjbr",
+         "tridiag_pallas_crgjbr2", "tridiag_pallas_crgjbpr", "tridiag_pallas_crgjbpr2",
+         "tridiag_pallas_crgjbprl"),
+        "the K3 facts gj/gjb*/gjbp*",
+    ),
+    "tridiag_pallas_lanes": "K1's forced lane-major mode (use 'tridiag_pallas')",
+}
+
+
 def _check_tier(mcp: PrimalDualMCP, tier: str):
-    if tier.startswith("tridiag"):
-        if tier != "tridiag_pallas":
-            raise NotImplementedError(
-                f"linear_solver={tier!r} is not ported yet (ROADMAP Queue 2 "
-                "K3/K7: other banded factorizations); this port has "
-                "'tridiag_pallas'"
-            )
+    if tier in _UNPORTED_BANDED:
+        raise NotImplementedError(
+            f"linear_solver={tier!r} is not ported yet: it needs "
+            f"{_UNPORTED_BANDED[tier]} (ROADMAP Queue 2); this port has "
+            f"{sorted(BANDED_SOLVERS)}"
+        )
+    if tier in BANDED_SOLVERS:
         st = mcp.time_structure
         if st is None:
             raise ValueError(
@@ -196,17 +238,6 @@ def _check_supported(mcp: PrimalDualMCP, options: SolverOptions):
     _check_tier(mcp, options.linear_solver)
     if options.retry:
         _check_tier(mcp, options.retry_linear_solver or options.linear_solver)
-    if (
-        options.algorithm != "ip"
-        and options.linear_solver.startswith("tridiag")
-        and mcp.constrained_dimension > 0
-    ):
-        raise NotImplementedError(
-            f"algorithm={options.algorithm!r} on a banded tier needs "
-            "banded_jac_mv, not ported yet (ROADMAP Queue 1 item 8; the banded "
-            "Newton module is item 4); "
-            "use a dense tier or algorithm='ip'"
-        )
     if options.verbose:
         raise NotImplementedError(
             "verbose=True is not ported yet (ROADMAP Queue 1 item 5)"
@@ -345,9 +376,10 @@ def _make_step(mcp, options, theta, dtype, reg, lin=None):
     every lane at (x, y, s) and its regularized Newton direction, on the
     tier of ``options.linear_solver``. A dense tier linearizes by ``lin``
     (default: a new ``_make_linearizer``)."""
-    if options.linear_solver.startswith("tridiag"):
+    if options.linear_solver in BANDED_SOLVERS:
         st = mcp.time_structure
         ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=dtype)
+        tsolve = BANDED_SOLVERS[options.linear_solver]
 
         def step(x, y, s, eps):
             with record_function(SPAN_RESIDUAL):
@@ -358,7 +390,7 @@ def _make_step(mcp, options, theta, dtype, reg, lin=None):
             with record_function(SPAN_NEWTON):
                 dx, dy, ds = banded_newton_step_compressed(
                     diag_b, lower_b, upper_b, Gy_b, Hx_b, y, s, rG, rH, rC, reg, st,
-                    algorithm=thomas_solve,
+                    algorithm=tsolve,
                 )
             return rG, rH, rC, dx, dy, ds
 
@@ -431,7 +463,7 @@ def _ip_solve_body(mcp, options, theta, x0, y0, s0, gate=None) -> SolveResult:
     use_fused_ls = (
         options.fused_linesearch
         if options.fused_linesearch is not None
-        else options.linear_solver == "tridiag_pallas"
+        else options.linear_solver in ("tridiag_pallas", "tridiag_auto")
     )
     candidates = linesearch_candidates(options.decay, options.min_stepsize)
 
@@ -566,28 +598,51 @@ def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0) -> SolveResult:
     dtype, device = x0.dtype, x0.device
     tol = options.tol
     reg = options.regularization if options.regularization is not None else tol
-    lin = _make_linearizer(mcp, theta, dtype)
-    make_solver = factored_newton_solver(options.linear_solver)
+    banded = options.linear_solver in BANDED_SOLVERS
+    if banded:
+        st = mcp.time_structure
+        ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=dtype)
+        tsolve = BANDED_SOLVERS[options.linear_solver]
+        lin = None
+    else:
+        lin = _make_linearizer(mcp, theta, dtype)
+        make_solver = factored_newton_solver(options.linear_solver)
     refine_steps = int(options.refinement_steps)
     where = torch.where
 
     def mv(J, v):
         return (J @ v[..., None])[..., 0]
 
+    def linearize(x, y):
+        """(g, h, newton) at the iterate: one Jacobian per iteration;
+        ``newton(s)`` factors it once and returns (solve_f, jac_mv), jac_mv
+        being the true (unregularized) ∇F_z · δ, in band form on the banded
+        tiers."""
+        if banded:
+            g, h, *bands = gh_banded_fast(mcp, st, x, y, theta, affine_bands=ab)
+            return g, h, lambda s: (
+                lambda bG, bH, bC: banded_newton_step_compressed(
+                    *bands, y, s, bG, bH, bC, reg, st, algorithm=tsolve),
+                lambda dx, dy, ds: banded_jac_mv(*bands, y, s, dx, dy, ds, st),
+            )
+        g, h, Gx, Gy, Hx, Hy = lin(x, y)
+        return g, h, lambda s: (
+            make_solver(Gx, Gy, Hx, Hy, y, s, reg),
+            lambda dx, dy, ds: (mv(Gx, dx) + mv(Gy, dy), mv(Hx, dx) + mv(Hy, dy) - ds,
+                                s * dy + y * ds),
+        )
+
     def body(x, y, s):
         with record_function(SPAN_RESIDUAL):
-            g, h, Gx, Gy, Hx, Hy = lin(x, y)
+            g, h, newton = linearize(x, y)
         rG, rH = g, h - s
         with record_function(SPAN_NEWTON):
-            solve_f = make_solver(Gx, Gy, Hx, Hy, y, s, reg)
+            solve_f, jac_mv = newton(s)
 
             def solve_refined(bG, bH, bC):
                 dx, dy, ds = solve_f(bG, bH, bC)
                 for _ in range(refine_steps):
-                    # True (unregularized) ∇F_z · δ.
-                    eG = mv(Gx, dx) + mv(Gy, dy)
-                    eH = mv(Hx, dx) + mv(Hy, dy) - ds
-                    eC = s * dy + y * ds
+                    eG, eH, eC = jac_mv(dx, dy, ds)
                     cx, cy, cs = solve_f(bG + eG, bH + eH, bC + eC)
                     dx, dy, ds = dx + cx, dy + cy, ds + cs
                 return dx, dy, ds

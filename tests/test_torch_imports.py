@@ -112,3 +112,66 @@ def test_cpu_dense_solves_build_nothing():
                                                            algorithm="mehrotra", polish=True))
     assert [w.launches for w in wrappers] == before
     assert not _build._LIBS
+
+
+def test_flagship_entry_points_default_to_cuda_and_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    from mcp_tpu_torch.bench import flagship_lanes, flagships
+    from mcp_tpu_torch.selection import MaskedGameRunner, setup_road_environment
+    from mcp_tpu_torch.selection import setup_trajectory_game
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        flagships.masked_game_setup(2, 4, 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        flagship_lanes.main(["--players", "2"])
+    game = setup_trajectory_game(environment=setup_road_environment(), N=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MaskedGameRunner.create(game, N=2, horizon=3)
+
+
+def test_cpu_banded_tiers_build_nothing():
+    """K3 and the auto dispatcher on CPU tensors run the plain versions: no
+    nvcc, no launch counted; a whole masked-game solve on every ported
+    banded tier, Mehrotra included, stays on the CPU."""
+    from mcp_tpu_torch import SolverOptions, solve_batch
+    from mcp_tpu_torch.bench import flagships
+    from mcp_tpu_torch.kernels import _build
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_thomas_solve
+    from mcp_tpu_torch.kernels.thomas import thomas_solve
+    from mcp_tpu_torch.solver import BANDED_SOLVERS
+
+    before = (dict(cr_thomas_solve.launches), thomas_solve.launches)
+    s = flagships.masked_game_setup(2, 2, 3, device="cpu", dtype=torch.float64)
+    for tier in BANDED_SOLVERS:
+        for algorithm in ("ip", "mehrotra"):
+            res = solve_batch(s.mcp, s.thetas, x0=s.x0, options=SolverOptions(
+                linear_solver=tier, algorithm=algorithm, max_outer_iters=3,
+                max_inner_iters=3))
+            assert res.x.device.type == "cpu"
+    assert (cr_thomas_solve.launches, thomas_solve.launches) == before
+    assert not _build._LIBS
+
+
+def test_flagship_lanes_reads_each_lane_on_the_cpu(tmp_path, capsys):
+    """The per-lane tool on the CPU at N=2 (horizon 30, batch 8), from the
+    flagship draw and from initial states in a file: one JSON line per run,
+    every lane SOLVED with its true KKT at tol, and the least distance
+    between the two players finite."""
+    import json
+
+    import numpy as np
+
+    from mcp_tpu_torch.bench import flagship_lanes, flagships
+
+    init = flagships.masked_game_setup(8, 2, 30, device="cpu", dtype=torch.float64).init
+    np.save(tmp_path / "init.npy", init.numpy())
+    flagship_lanes.main(["--players", "2", "--device", "cpu", "--runs", "tridiag_cr:float64"])
+    flagship_lanes.main(["--players", "2", "--device", "cpu", "--runs", "tridiag_cr:float64",
+                         "--init", str(tmp_path / "init.npy")])
+    own, from_file = (json.loads(line) for line in capsys.readouterr().out.splitlines())
+    assert own["status"] == [0] * 8 and max(own["true_kkt"]) <= 1e-4
+    assert all(0.0 < d < float("inf") for d in own["min_pair_distance"])
+    # The file holds the draw's own states (cast to float32 and back).
+    assert from_file["status"] == own["status"]
+    assert from_file["outer_iters"] == own["outer_iters"]

@@ -148,16 +148,16 @@ def test_warm_chain_streams_from_the_previous_solution():
 @pytest.mark.parametrize(
     "override, item",
     [
-        (dict(algorithm="mehrotra"), "item 8"),
-        (dict(linear_solver="tridiag_pallas_cr"), "K3"),
+        (dict(linear_solver="gmres"), "item 8"),
+        (dict(linear_solver="tridiag_pallas_crgj"), "K3"),
         (dict(matmul_precision="high"), "item 5"),
         (dict(verbose=True), "item 5"),
     ],
 )
 def test_unported_options_raise(override, item):
-    """Mehrotra on the banded tier needs banded_jac_mv; the other banded
-    factorizations are K3/K7; verbose and reduced matmul precision are not
-    ported."""
+    """The gmres tier is not ported; the banded factorizations other than
+    K1 and K3's qr/gjp/gjpr need the K3 facts gj/gjb*/gjbp* or K7; verbose
+    and reduced matmul precision are not ported."""
     _, tm, thetas, _ = _setup()
     with pytest.raises(NotImplementedError, match=item):
         solve_batch(tm, torch.from_numpy(thetas[:1]), options=SolverOptions(**{**HEADLINE, **override}))
