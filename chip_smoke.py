@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, drives two paths through
-the user entry points, each with every launch count set to 0 just before it
-and read just after:
+each against its plain PyTorch version on the card, drives these paths
+through the user entry points, each with every launch count set to 0 just
+before it and read just after:
 
   * the lane-change main path (T=10, 2048 instances in batches of 256,
     float32, tol 1e-4, the headline options);
@@ -18,11 +18,17 @@ and read just after:
     batch 8, float32, tol 1e-4): N=4 (b=40, hybrid with refinement 0, four
     batches after a warm one; K3 with pivoted Gauss–Jordan) and N=10
     (b=100, "ip", one batch; K3 with refined pivoted Gauss–Jordan);
+  * the solver-in-the-loop training step on tier "tridiag_pallas" (N=4,
+    horizon 30, batch 8, float32: MLP → masked-game solve → loss → IFT
+    gradient → SGD; the two-way sweep K7a in the forward and the backward,
+    K2), one warm and three timed steps;
 
 certifies each result with the true KKT residual, checks a few lanes
-against a float64 CPU reference, times each kernel beside its bound, its
-plain version and a library call, profiles one batch of each path (the
-first outer iterations of the N=10 batch), and
+against a float64 CPU reference, checks the training gradient against
+finite differences (float64) and against the CPU's float64 gradient, times
+each kernel beside its bound, its plain version and a library call,
+profiles one batch of each path (the first outer iteration of the N=10
+batch) and one train step, and
 prints as its last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -33,8 +39,11 @@ any phase fails. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -99,8 +108,9 @@ N4_OPTIONS = dict(tol=1e-4, linear_solver="tridiag_auto", algorithm="hybrid",
 N10_OPTIONS = dict(tol=1e-4, linear_solver="tridiag_auto", algorithm="ip", polish=True)
 N4_MIN_SUCCESS, N10_MIN_SUCCESS = 0.9, 0.75
 # The N=10 batch runs for minutes (its failing lanes iterate to
-# max_outer_iters); its profile covers the first few outer iterations.
-N10_PROFILE_OUTER = 3
+# max_outer_iters); its profile covers the first outer iteration (about 20
+# Newton steps and 220,000 kernel launches).
+N10_PROFILE_OUTER = 1
 # K3 against its plain version: max|kernel − plain| / max|plain|. The
 # Gauss–Jordan elimination rounds as the plain version; the head
 # contraction, refinement and level products sum in another order, which
@@ -112,6 +122,35 @@ N10_PROFILE_OUTER = 3
 # version's backward error on the same system.
 K3_TOL = {"float32": 1e-3, "float64": 1e-10}
 K3_BWD_TOL = {"float32": 100 * 2.0**-23, "float64": 100 * 2.0**-52}
+# K7a (the two-way sweep) is held to K3's rule above.
+
+# The solver-in-the-loop training step (the JAX package's
+# scripts/bench_train_step.py at its flagship shape, N=4, horizon 30, batch
+# 8, float32) on tier "tridiag_pallas", whose route there is K7a in the
+# forward Newton steps and in the IFT's transposed solve: one warm step, then
+# TRAIN_STEPS timed steps, each followed by its SGD update (the warm step's
+# too, so no timed step repeats its masks). The step metric is the timed
+# window over TRAIN_STEPS, the median step beside it. The ground-truth
+# (all-ones mask) solve must succeed on TRAIN_MIN_SUCCESS of the lanes. The
+# steps' partial-mask solves are harder: at the fresh MLP's masks 2 of the 8
+# lanes of the seed-0 draw FAIL (lane 1 also in float64 on the CPU, in the
+# port and in the JAX package alike), none after one SGD update (PERF.md
+# §6); TRAIN_STEP_MIN_SUCCESS only catches a broken path.
+TRAIN_B, TRAIN_STEPS, TRAIN_MIN_SUCCESS, TRAIN_STEP_MIN_SUCCESS = 8, 3, 0.9, 0.5
+# Gradient checks at batch GRAD_B of the same game, θ noise from seed
+# GRAD_SEED (a draw whose lanes solve at the first step). (1) float64 on
+# the card at solve tolerance GRAD_SOLVE_TOL: the IFT directional derivative
+# of the loss against finite differences, |fd − ift| / ‖g‖ ≤ FD_TOL, along
+# the unit gradient (central differences at FD_STEP and FD_STEP/2, Richardson
+# extrapolated: the loss curves strongly along the gradient, so a single
+# central difference at 1e-3 is off by ~2e-3 of ‖g‖) and along a random
+# unit direction (one central difference at FD_STEP). (2) The card's float32
+# gradient against the CPU's float64 gradient of the same step (the card's
+# inputs and weights, solve tolerance 1e-4): max|g32 − g64| / max|g64| ≤
+# F32_GRAD_TOL. Each tolerance is ten to twenty times the floor measured on
+# the card (PERF.md §6).
+GRAD_B, GRAD_SEED, GRAD_SOLVE_TOL, FD_STEP = 2, 1, 1e-9, 2e-4
+FD_TOL, F32_GRAD_TOL = 3e-8, 1e-4
 
 
 class PhaseFailed(Exception):
@@ -749,41 +788,45 @@ def phase_qp_reference(options, stack, res):
 # -- profile ---------------------------------------------------------------
 
 
-def phase_profile(mcp, options, thetas, x0=None):
-    """One batch under torch.profiler: host time per solver span, the
-    device's busy and idle share, the kernels that ran, the host syncs.
-    (The profiler itself slows the host; shares, not times, are the point.)"""
+def profile_call(fn, span_names, on_card=True):
+    """``fn()`` once under torch.profiler: host time per span, the device's
+    busy and idle share, the kernels that ran, the host syncs, and the host
+    time of the IFT's backward node (``_IFTSolveBackward``, the autograd
+    engine's evaluation of it). (The profiler itself slows the host;
+    shares, not times, are the point.)"""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mcp_tpu_torch import solve_batch
-    from mcp_tpu_torch import solver as S
-
-    span_names = (S.SPAN_RESIDUAL, S.SPAN_NEWTON, S.SPAN_LINESEARCH, S.SPAN_LOOP_TEST)
-    on_card = thetas.device.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     if on_card:
         torch.cuda.synchronize()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        solve_batch(mcp, thetas, x0=x0, options=options)
+        fn()
         if on_card:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
+    # The raw Kineto events: building prof.events()' Python tree of a
+    # residual-heavy step (over a million CPU ops) takes minutes.
+    events = prof.profiler.kineto_results.events()
     host = {name: {"ms": 0.0, "count": 0} for name in span_names}
-    by_kernel, intervals = {}, []
+    by_kernel, intervals, ift_backward_ns, syncs = {}, [], 0, 0
     for e in events:
-        if e.name in span_names:  # a span: its CPU range (and a GPU mirror)
-            if e.device_type == DeviceType.CPU:
-                host[e.name]["ms"] += e.time_range.elapsed_us() / 1e3
-                host[e.name]["count"] += 1
-        elif e.device_type == DeviceType.CUDA:
-            intervals.append((e.time_range.start, e.time_range.end))
-            t = by_kernel.setdefault(e.name, [0.0, 0])
-            t[0] += e.time_range.elapsed_us()
+        name, on_cpu = e.name(), e.device_type() == DeviceType.CPU
+        if name in span_names:  # a span: its CPU range (and a GPU mirror)
+            if on_cpu:
+                host[name]["ms"] += e.duration_ns() / 1e6
+                host[name]["count"] += 1
+        elif e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            intervals.append((e.start_ns() / 1e3, e.end_ns() / 1e3))
+            t = by_kernel.setdefault(name, [0.0, 0])
+            t[0] += e.duration_ns() / 1e3
             t[1] += 1
+        elif name == "cudaStreamSynchronize":
+            syncs += 1
+        elif name.startswith("autograd::engine::evaluate_function: _IFTSolveBackward"):
+            ift_backward_ns += e.duration_ns()
     busy, cur = 0.0, None
     for a, b in sorted(intervals):  # union of kernel intervals (us)
         if cur is None or a > cur[1]:
@@ -799,12 +842,25 @@ def phase_profile(mcp, options, thetas, x0=None):
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
         "kernel_launches": len(intervals),
-        "host_syncs": sum(1 for e in events if e.name == "cudaStreamSynchronize"),
+        "host_syncs": syncs,
         "host_spans": host,
+        "ift_backward_host_ms": ift_backward_ns / 1e6,
         "top_kernels": {k[:70]: [round(v[0] / 1e3, 3), v[1]] for k, v in top},
     }
-    log("  profile (one batch): " + json.dumps(out))
     check(not on_card or len(intervals) > 0, "profile: no device activity recorded")
+    return out
+
+
+def phase_profile(mcp, options, thetas, x0=None):
+    """One batch of ``solve_batch`` under torch.profiler (``profile_call``)."""
+    from mcp_tpu_torch import solve_batch
+    from mcp_tpu_torch import solver as S
+
+    out = profile_call(lambda: solve_batch(mcp, thetas, x0=x0, options=options),
+                       (S.SPAN_RESIDUAL, S.SPAN_NEWTON, S.SPAN_LINESEARCH, S.SPAN_LOOP_TEST),
+                       thetas.device.type == "cuda")
+    del out["ift_backward_host_ms"]
+    log("  profile (one batch): " + json.dumps(out))
     return out
 
 
@@ -966,28 +1022,37 @@ def block_backward_error(diag, lower, upper, rhs, x):
     return amax(Ax - r) / (rows.flatten(1).amax(dim=1) * amax(x) + amax(r))
 
 
-def k3_check(name, args, fact):
-    """K3 against its plain version: returns the max absolute difference."""
+def block_check(label, kernel, plain, args):
+    """A block-tridiagonal kernel against its plain version on ``args`` by
+    K3's rule (max|kernel − plain|/max|plain| within K3_TOL; each system's
+    backward error ≤ 100 ε or ≤ 2x the plain version's): returns the max
+    absolute difference."""
     import torch
 
-    from mcp_tpu_torch.kernels.cyclic_reduction import cr_solve_plain, cr_thomas_solve
-
-    xk = cr_thomas_solve(*args, fact=fact)
+    xk = kernel(*args)
     torch.cuda.synchronize()
-    xp = cr_solve_plain(*args, fact)
+    xp = plain(*args)
     tag = str(args[0].dtype)[6:]
     err = float((xk - xp).abs().max())
     rel = err / max(float(xp.abs().max()), 1e-30)
     bk, bp = block_backward_error(*args, xk), block_backward_error(*args, xp)
     over = int((bk > torch.clamp(2 * bp, min=K3_BWD_TOL[tag])).sum())
-    log(f"  K3 {fact} {name} {tag}: max|kernel-plain|/max|plain|={rel:.3e} (tol "
+    log(f"  {label} {tag}: max|kernel-plain|/max|plain|={rel:.3e} (tol "
         f"{K3_TOL[tag]:g}); backward error kernel {float(bk.max()):.3e} plain "
         f"{float(bp.max()):.3e} (tol {K3_BWD_TOL[tag]:.3e} or 2x plain; systems over: "
         f"{over})")
-    check(bool(torch.isfinite(xk).all()), f"K3 {fact} {name}: non-finite kernel output")
-    check(rel <= K3_TOL[tag], f"K3 {fact} {name}: kernel and plain differ by {rel:.3e}")
-    check(over == 0, f"K3 {fact} {name}: kernel backward error {float(bk.max()):.3e}")
+    check(bool(torch.isfinite(xk).all()), f"{label}: non-finite kernel output")
+    check(rel <= K3_TOL[tag], f"{label}: kernel and plain differ by {rel:.3e}")
+    check(over == 0, f"{label}: kernel backward error {float(bk.max()):.3e}")
     return err
+
+
+def k3_check(name, args, fact):
+    """K3 against its plain version: returns the max absolute difference."""
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_solve_plain, cr_thomas_solve
+
+    return block_check(f"K3 {fact} {name}", lambda *a: cr_thomas_solve(*a, fact=fact),
+                       lambda *a: cr_solve_plain(*a, fact), args)
 
 
 def phase_k3(real_lane_bands, n4, n10, device):
@@ -1198,12 +1263,10 @@ def dense_block_system(diag, lower, upper, rhs):
 
 def phase_k3_timing(bands, errs, n4_launches, n10_launches):
     """K3 at both flagship shapes beside its bound, its plain version and a
-    dense torch.linalg.solve of the same system; K1 and K3 gjp on the N=4
-    bands at B=8 and B=128 (the card's data on the mid-block threshold)."""
+    dense torch.linalg.solve of the same system."""
     import torch
 
     from mcp_tpu_torch.kernels.cyclic_reduction import cr_solve_plain, cr_thomas_solve
-    from mcp_tpu_torch.kernels.thomas import thomas_solve
 
     kernels = []
     for fact, shape, replaces, lau, solves in (
@@ -1231,14 +1294,348 @@ def phase_k3_timing(bands, errs, n4_launches, n10_launches):
             f"GFLOP, {nbytes / 1e6:.2f} MB], dense solve {entry['library_ms']:.3f} ms); "
             f"launches {lau} in the path window: {lau / max(solves // FLAG_B, 1):.2f} per "
             f"batch, {lau / solves:.3f} per solve")
-    d, lo, up, r = bands["gjp"]
+    return kernels
+
+
+# -- K7a and the training step ---------------------------------------------
+
+
+def k7a_check(name, args):
+    """K7a against its plain version by K3's rule; returns the max absolute
+    difference."""
+    from mcp_tpu_torch.kernels.thomas_babe import babe_solve_plain, babe_thomas_solve
+
+    return block_check(f"K7a {name}", babe_thomas_solve, babe_solve_plain, args)
+
+
+@contextlib.contextmanager
+def ift_watch():
+    """While active, the banded IFT's block-tridiagonal solve
+    (``diff._band_solve``) goes through a recorder that keeps the operands
+    of its first call (``rec["args"]``) and adds up the K7a launches made
+    inside it (``rec["launches"]``, read from the wrapper's count); the solve
+    itself is unchanged."""
+    from mcp_tpu_torch import diff
+    from mcp_tpu_torch.kernels.thomas_babe import babe_thomas_solve
+
+    real = diff._band_solve
+    rec = {"args": None, "launches": 0}
+
+    def solve(tier, *args):
+        if rec["args"] is None:
+            rec["args"] = args
+        before = babe_thomas_solve.launches
+        out = real(tier, *args)
+        rec["launches"] += babe_thomas_solve.launches - before
+        return out
+
+    diff._band_solve = solve
+    try:
+        yield rec
+    finally:
+        diff._band_solve = real
+
+
+def phase_k7a(n4, device):
+    """K7a against its plain version on the card in float32 and float64: the
+    N=4 flagship's first-Newton bands (8, 30, 40), random bands at T = 2, 3,
+    21, 31, the lane-change bands at horizon 20 (T=20, b=20, bands shared
+    over the batch) and zero blocks at each chain's start; then K1 on the
+    route "padded" (B=8, T=10, b=50 and 60; the unpacked one-way sweep K7b
+    of the JAX package) against its plain version. Returns the N=4 float32
+    bands and K7a's max absolute difference on them."""
+    import torch
+
+    from mcp_tpu_torch.bench import lane_change as lc
+    from mcp_tpu_torch.kernels import thomas_dispatch as TD
+    from mcp_tpu_torch.kernels.thomas import thomas_solve
+    from mcp_tpu_torch.kernels.thomas_babe import babe_solve_plain, babe_thomas_solve
+
+    f32, f64 = torch.float32, torch.float64
+    lane = lc.generate_test_problem(horizon=20, device=device)
+    lane_th = lc.generate_parameter_batch(torch.Generator().manual_seed(12), 64, lane,
+                                          dtype=f64, device=device)
+    check(TD.kernel_mode(FLAG_B, FLAG_T, 40, 4) == "babe" and TD.kernel_mode(64, 20, 20, 4)
+          == "babe", "K7a: tier tridiag_pallas does not route the checked shapes to K7a")
+    bands = err = None
+    for dtype in (f32, f64):
+        real = first_newton_bands(n4.mcp, n4.thetas.to(dtype), n4.x0.to(dtype))
+        e = k7a_check("N=4 first Newton step ({})".format("x".join(map(str, real[0].shape[:3]))),
+                      real)
+        if dtype == f32:
+            bands, err = real, e
+        for T, b in ((2, 40), (3, 40), (21, 20), (31, 40)):
+            k7a_check(f"random ({FLAG_B}x{T}x{b})",
+                      random_bands((FLAG_B, T, b), dtype, device, 50 + T))
+        k7a_check("lane-change first Newton step (64x20x20, shared bands)",
+                  first_newton_bands(lane.parametric_game.mcp, lane_th.to(dtype)))
+    # A zero block at the start of the left chain (system 1) and of the
+    # right chain (system 2): inf/NaN in those systems only, as in the plain
+    # version; the others agree.
+    diag, lower, upper, rhs = random_bands((4, 7, 40), f32, device, 57)
+    diag[1, 0] = 0.0
+    diag[2, 6] = 0.0
+    xk = babe_thomas_solve(diag, lower, upper, rhs)
+    torch.cuda.synchronize()
+    xp = babe_solve_plain(diag, lower, upper, rhs)
+    bad_k = (~torch.isfinite(xk).flatten(1).all(dim=1)).tolist()
+    bad_p = (~torch.isfinite(xp).flatten(1).all(dim=1)).tolist()
+    diff = float((xk[[0, 3]] - xp[[0, 3]]).abs().max() / xp[[0, 3]].abs().max())
+    log(f"  K7a zero blocks: non-finite systems kernel={bad_k} plain={bad_p}, "
+        f"max|kernel-plain|/max|plain| over the others {diff:.3e}")
+    check(bad_k == bad_p == [False, True, True, False], "K7a zero blocks: finiteness")
+    check(diff <= K3_TOL["float32"], "K7a zero blocks: the other systems differ")
+    for b in (50, 60):
+        check(TD.kernel_mode(FLAG_B, 10, b, 4) == "padded"
+              and TD.route_solver(FLAG_B, 10, b, 4) is thomas_solve,
+              f"K1: (8, 10, {b}) is not on the padded route to K1")
+        for dtype, tol in ((f32, K1_TOL), (f64, K1_F64_TOL)):
+            k1_check(f"padded route ({FLAG_B},10,{b}) {str(dtype)[6:]}",
+                     random_bands((FLAG_B, 10, b), dtype, device, b), tol)
+    return bands, err
+
+
+def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
+    """The training step through the user entry points: ``train_step_setup``
+    on tier "tridiag_pallas" (its ground-truth solve certified), one warm
+    step, then ``steps`` timed steps, each (the warm one too) a train_step
+    and its sgd_update, with every launch count set to 0 just before the
+    timed steps and read just after; K7a's
+    launches inside the IFT are the backward's, the rest the forward's.
+    Returns (setup, the IFT's operands from the warm step, launches, stats)."""
+    import torch
+
+    from mcp_tpu_torch import SOLVED
+    from mcp_tpu_torch.bench.flagships import train_step_setup
+    from mcp_tpu_torch.bench.harness import true_kkt_errors
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_thomas_solve
+    from mcp_tpu_torch.kernels.linesearch import linesearch_update
+    from mcp_tpu_torch.kernels.thomas import thomas_solve
+    from mcp_tpu_torch.kernels.thomas_babe import babe_thomas_solve
+
+    t0 = time.perf_counter()
+    s = train_step_setup(batch, 4, FLAG_T, tier="tridiag_pallas", device=device)
+    setup_s = time.perf_counter() - t0
+    N, gt = s.config.num_players, s.gt.result
+    ones = torch.ones((batch, N, N), dtype=s.init.dtype, device=s.init.device)
+    tk = true_kkt_errors(s.runner.parametric_game.mcp, gt,
+                         s.runner.pack_thetas(s.init, s.goals, ones))
+    solved = gt.status == SOLVED
+    tol = s.runner.options.tol
+    log(f"  setup {setup_s:.1f} s (game build, MLP, ground-truth solve): tightening rate "
+        f"{s.rate}, ground-truth success {s.gt_success} (iterations "
+        f"{gt.outer_iters.tolist()}), max true KKT of a SOLVED lane "
+        f"{float(tk[solved].max()) if bool(solved.any()) else float('nan'):.3e}")
+    check(s.gt_success >= TRAIN_MIN_SUCCESS,
+          f"training: ground-truth success {s.gt_success} < {TRAIN_MIN_SUCCESS}")
+    check(not bool((solved & (tk > tol)).any()),
+          "training: a SOLVED ground-truth lane has true KKT above tol")
+    with ift_watch() as warm:
+        _, _, grads = s.train_step(s.model, s.trajectories, s.init, s.goals)
+        s.sgd_update(s.model, grads, s.config.learning_rate)
+    torch.cuda.synchronize()
+
+    thomas_solve.launches = linesearch_update.launches = babe_thomas_solve.launches = 0
+    cr_thomas_solve.launches = dict.fromkeys(cr_thomas_solve.launches, 0)
+    rows = []
+    t_window = time.perf_counter()
+    with ift_watch() as w:
+        for i in range(steps):
+            t1 = time.perf_counter()
+            loss, (per_example, status), grads = s.train_step(
+                s.model, s.trajectories, s.init, s.goals)
+            s.sgd_update(s.model, grads, s.config.learning_rate)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            rows.append({
+                "step": i, "loss": float(loss),
+                "forward_success": float((status == SOLVED).double().mean()),
+                "failed_lanes": (status != SOLVED).nonzero().flatten().tolist(),
+                "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads),
+                "seconds": dt, "examples_per_s": batch / dt,
+            })
+            log(f"  train step {i}: " + json.dumps(rows[-1]))
+    window = time.perf_counter() - t_window
+    launches = {
+        "babe_forward": babe_thomas_solve.launches - w["launches"],
+        "babe_backward": w["launches"],
+        "linesearch": linesearch_update.launches,
+        "thomas": thomas_solve.launches,
+        "cr_thomas_solve": dict(cr_thomas_solve.launches),
+    }
+    secs = sorted(r["seconds"] for r in rows)
+    stats = {"steps": steps, "batch": batch, "window_s": window,
+             "seconds_per_step": window / steps, "examples_per_s": batch * steps / window,
+             "seconds_per_step_median": secs[len(secs) // 2],
+             "forward_success_min": min(r["forward_success"] for r in rows),
+             "launches": launches}
+    log("  training path: " + json.dumps(stats))
+    check(all(r["grads_finite"] for r in rows), "training: non-finite gradient")
+    check(all(math.isfinite(r["loss"]) for r in rows), "training: non-finite loss")
+    check(stats["forward_success_min"] >= TRAIN_STEP_MIN_SUCCESS,
+          f"training: step success {stats['forward_success_min']} < {TRAIN_STEP_MIN_SUCCESS}")
+    check(launches["babe_forward"] > 0 and launches["babe_backward"] > 0,
+          f"training: K7a not launched in both passes {launches}")
+    check(launches["linesearch"] > 0, "training: K2 never launched")
+    check(launches["thomas"] == 0 and not any(launches["cr_thomas_solve"].values()),
+          f"training: K1 or K3 launched on the K7a route {launches}")
+    return s, warm["args"], launches, stats
+
+
+def phase_train_gradients(device):
+    """The gradient checks of GRAD_B lanes of the training game (see
+    FD_TOL, F32_GRAD_TOL). Returns the float64 IFT operands of the first
+    check and the measured errors."""
+    import torch
+
+    from mcp_tpu_torch import SOLVED
+    from mcp_tpu_torch.bench.flagships import masked_game_setup, train_step_setup
+    from mcp_tpu_torch.convert import mlp_params_from_numpy
+    from mcp_tpu_torch.selection import make_train_step
+
+    f64 = torch.float64
+    s = train_step_setup(GRAD_B, 4, FLAG_T, tier="tridiag_pallas", seed=GRAD_SEED,
+                         device=device, dtype=f64)
+    runner = dataclasses.replace(
+        s.runner, options=dataclasses.replace(s.runner.options, tol=GRAD_SOLVE_TOL))
+    train_step, eval_step, _ = make_train_step(runner, s.config)
+    with ift_watch() as w:
+        loss, (_, status), grads = train_step(s.model, s.trajectories, s.init, s.goals)
+    check(bool((status == SOLVED).all()), f"gradient check: status {status.tolist()}")
+    gnorm = math.sqrt(sum(float((g * g).sum()) for g in grads))
+    gen = torch.Generator().manual_seed(5)
+    rnd = [torch.randn(g.shape, generator=gen, dtype=f64).to(device) for g in grads]
+    rnorm = math.sqrt(sum(float((r * r).sum()) for r in rnd))
+    errs = {}
+    for name, v, steps in (("gradient", [g / gnorm for g in grads], (FD_STEP, FD_STEP / 2)),
+                           ("random", [r / rnorm for r in rnd], (FD_STEP,))):
+        ift = sum(float((g * d).sum()) for g, d in zip(grads, v))
+
+        def central(h):
+            values = []
+            for sign in (1, -1):
+                m = copy.deepcopy(s.model)
+                with torch.no_grad():
+                    for p, d in zip(m.parameters(), v):
+                        p.add_(sign * h * d)
+                value, (_, st) = eval_step(m, s.trajectories, s.init, s.goals)
+                check(bool((st == SOLVED).all()),
+                      f"gradient check: status {st.tolist()} at {sign * h}")
+                values.append(float(value))
+            return (values[0] - values[1]) / (2 * h)
+
+        fds = [central(h) for h in steps]
+        fd = fds[0] if len(fds) == 1 else (4 * fds[1] - fds[0]) / 3
+        errs[name] = abs(fd - ift) / gnorm
+        log(f"  float64 IFT vs finite differences along the {name} direction: ift {ift:.9e}, "
+            f"central differences {', '.join(f'{f:.9e}' for f in fds)} at steps {steps}"
+            f"{', extrapolated' if len(fds) > 1 else ''} {fd:.9e}: |fd-ift|/|g| = "
+            f"{errs[name]:.3e} (tol {FD_TOL:g}; |g| {gnorm:.4e}, solve tol {GRAD_SOLVE_TOL:g})")
+        check(errs[name] <= FD_TOL, f"gradient check ({name}): {errs[name]:.3e} > {FD_TOL:g}")
+
+    # The card's float32 step (the training options) against the CPU's
+    # float64 step, both on the float64 setup's inputs and weights rounded to
+    # float32.
+    f32 = torch.float32
+    weights = [layer.weight.detach().cpu().numpy() for layer in s.model.layers]
+    biases = [layer.bias.detach().cpu().numpy() for layer in s.model.layers]
+    inputs32 = [a.to(f32) for a in (s.trajectories, s.init, s.goals)]
+    _, (_, st32), g32 = s.train_step(mlp_params_from_numpy(weights, biases, device=device,
+                                                           dtype=f32), *inputs32)
+    t0 = time.perf_counter()
+    cpu = masked_game_setup(GRAD_B, 4, FLAG_T, device="cpu", dtype=f64)
+    cpu_step, _, _ = make_train_step(dataclasses.replace(cpu.runner, options=s.runner.options),
+                                     s.config)
+    up = lambda a: a.detach().to(device="cpu", dtype=f64)
+    model64 = mlp_params_from_numpy([w.astype(np.float32) for w in weights],
+                                    [b.astype(np.float32) for b in biases], device="cpu",
+                                    dtype=f64)
+    _, (_, st64), g64 = cpu_step(model64, *(up(a) for a in inputs32))
+    scale = max(float(g.abs().max()) for g in g64)
+    errs["f32_vs_cpu_f64"] = max(float((up(a) - b).abs().max()) for a, b in zip(g32, g64)) / scale
+    log(f"  card float32 vs CPU float64 gradient of one step ({GRAD_B} lanes): status "
+        f"{st32.tolist()} vs {st64.tolist()}, max|g32-g64|/max|g64| = "
+        f"{errs['f32_vs_cpu_f64']:.3e} (tol {F32_GRAD_TOL:g}), CPU "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(torch.equal(st32.cpu(), st64), "gradient check: float32 and float64 status differ")
+    check(errs["f32_vs_cpu_f64"] <= F32_GRAD_TOL,
+          f"gradient check: float32 gradient off by {errs['f32_vs_cpu_f64']:.3e}")
+    return w["args"], errs
+
+
+def babe_counts(Bn, T, b, shared_bands, itemsize=4):
+    """(bytes, flops) of the two-way sweep: inputs read once and x written
+    once (as ``thomas_counts``); T sweep steps, each a Householder QR solve
+    against [U | r] (2b+1 columns), T−2 of them after an L·[C | d] product;
+    the junction (C·[E | e], a QR solve with one right side, x_ml); T−2
+    back-substitution products."""
+    nbytes, _ = thomas_counts(Bn, T, b, shared_bands, itemsize)
+
+    def qr_solve(nc):
+        fac = sum(4 * (b - k) * (nc - k) for k in range(b))
+        return fac + sum(2 * (b - 1 - k) * (nc - b) + (nc - b) for k in range(b))
+
+    step = qr_solve(2 * b + 1)
+    elim = 2 * b * b * (b + 1)
+    junction = 2 * b * b * (b + 1) + qr_solve(b + 1) + 2 * b * b
+    flops = T * step + (T - 2) * elim + junction + (T - 2) * 2 * b * b
+    return nbytes, Bn * flops
+
+
+def phase_k7a_timing(bands, err, launches):
+    """K7a at the N=4 first-Newton bands beside its bound, its plain version
+    and a dense torch.linalg.solve of the same system; then K7a, K1 and K3
+    gjp on those bands at B=8 and B=128 (the mid-block threshold data)."""
+    import torch
+
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_thomas_solve
+    from mcp_tpu_torch.kernels.thomas import thomas_solve
+    from mcp_tpu_torch.kernels.thomas_babe import babe_solve_plain, babe_thomas_solve
+
+    Bn, T, b, _ = bands[0].shape
+    nbytes, flops = babe_counts(Bn, T, b, bands[1].stride(0) == 0)
+    b_ms, b_by = bound(nbytes, flops)
+    A, r = dense_block_system(*bands)
+    entry = {
+        "name": "babe_thomas_solve", "route": "cuda",
+        "source": "mcp_tpu_torch/kernels/csrc/thomas_babe.cu",
+        "replaces": "mcp_tpu/kernels/thomas_pallas.py:737",
+        "launches": launches["babe_forward"] + launches["babe_backward"],
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: babe_thomas_solve(*bands), 30),
+        "plain_ms": cuda_ms(lambda: babe_solve_plain(*bands), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.linalg.solve(A, r), 5),
+    }
+    log(f"  K7a N=4 ({Bn},{T},{b}): {entry['ms']:.4f} ms (plain {entry['plain_ms']:.3f} ms, "
+        f"bound {b_ms:.5f} ms by {b_by} [{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB], "
+        f"dense solve {entry['library_ms']:.3f} ms); launches {entry['launches']} in the "
+        f"training window ({launches['babe_forward']} forward, {launches['babe_backward']} "
+        "backward)")
     for rep in (1, 16):
-        args = tuple(a.repeat(rep, *([1] * (a.dim() - 1))).contiguous() for a in (d, lo, up, r))
+        args = tuple(a.repeat(rep, *([1] * (a.dim() - 1))).contiguous() for a in bands)
+        k7 = cuda_ms(lambda: babe_thomas_solve(*args), 10)
         k1 = cuda_ms(lambda: thomas_solve(*args), 10)
         k3 = cuda_ms(lambda: cr_thomas_solve(*args, fact="gjp"), 10)
-        log(f"  mid-block threshold data, N=4 bands at B={args[0].shape[0]}: K1 (QR sweep) "
-            f"{k1:.4f} ms, K3 gjp {k3:.4f} ms")
-    return kernels
+        log(f"  mid-block threshold data, N=4 bands at B={args[0].shape[0]}: K7a (two-way "
+            f"sweep) {k7:.4f} ms, K1 (one-way sweep) {k1:.4f} ms, K3 gjp {k3:.4f} ms")
+    return entry
+
+
+def phase_train_profile(s):
+    """One train step under torch.profiler (``profile_call``): the solver's
+    and the IFT's spans, and the IFT backward's share of the step (the rest
+    of the backward, through the loss and the MLP, is a few small ops)."""
+    from mcp_tpu_torch import diff
+    from mcp_tpu_torch import solver as S
+
+    out = profile_call(lambda: s.train_step(s.model, s.trajectories, s.init, s.goals),
+                       (S.SPAN_RESIDUAL, S.SPAN_NEWTON, S.SPAN_LINESEARCH, S.SPAN_LOOP_TEST,
+                        diff.SPAN_IFT_BANDS, diff.SPAN_IFT_SOLVE),
+                       s.init.device.type == "cuda")
+    out["ift_backward_share"] = out["ift_backward_host_ms"] / out["wall_ms_profiled"]
+    log("  profile (one train step): " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -1252,13 +1649,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+
+    def phase(title):
+        log(f"phase {title} [{time.perf_counter() - t_start:.0f} s]")
+
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from mcp_tpu_torch.kernels import _build
 
-    log("phase 1: build kernels")
+    phase("1: build kernels")
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.2f} s")
@@ -1271,50 +1672,63 @@ def main() -> int:
     from mcp_tpu_torch.bench import lane_change as lc
 
     mcp = lc.generate_test_problem(horizon=10, device=device).parametric_game.mcp
-    log("phase 2: K1 (thomas) kernel vs plain")
+    phase("2: K1 (thomas) kernel vs plain")
     real_bands, k1_err = phase_k1(mcp, device)
-    log("phase 3: K2 (linesearch) kernel vs plain")
+    phase("3: K2 (linesearch) kernel vs plain")
     k2_err = phase_k2(device)
-    log("phase 4: main path")
+    phase("4: main path")
     mcp, options, stack, res, launches = phase_main_path(device)
-    log("phase 5: reference check")
+    phase("5: reference check")
     phase_reference(options, stack, res)
-    log("phase 6: K4a (gj), K5 (gji), K4b/K4c (gauss, QR) kernels vs plain")
+    phase("6: K4a (gj), K5 (gji), K4b/K4c (gauss, QR) kernels vs plain")
     schur, dense_errs = phase_dense_kernels(device)
-    log("phase 7: QP path")
+    phase("7: QP path")
     qp_mcp, qp_options, qp_stack, qp_res, gj_launches = phase_qp_path(device)
-    log("phase 8: QP tiers schur_pallas (K4b/K4c) and schur_pallas_gjr (K5)")
+    phase("8: QP tiers schur_pallas (K4b/K4c) and schur_pallas_gjr (K5)")
     tier_launches = phase_qp_tiers(qp_mcp, qp_options, device)
-    log("phase 9: QP reference check")
+    phase("9: QP reference check")
     phase_qp_reference(qp_options, qp_stack, qp_res)
-    log("phase 10: kernel timing")
+    phase("10: kernel timing")
     kernels = phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs,
                            {"gj_solve": gj_launches, **tier_launches})
-    log("phase 11: profile of one main-path batch")
+    phase("11: profile of one main-path batch")
     phase_profile(mcp, options, stack[0])
-    log("phase 12: profile of one QP batch")
+    phase("12: profile of one QP batch")
     phase_profile(qp_mcp, qp_options, qp_stack[0])
-    log("phase 13: K3 (cyclic reduction), and K2 at the flagship shapes, vs plain")
+    phase("13: K3 (cyclic reduction), and K2 at the flagship shapes, vs plain")
     n4, n10 = flagship(4), flagship(10)
     k3_bands, k3_errs = phase_k3(real_bands, n4, n10, device)
     phase_k2(device, [(FLAG_B, s.mcp.unconstrained_dimension, s.mcp.constrained_dimension)
                       for s in (n4, n10)])
-    log("phase 14: N=4 flagship path")
+    phase("14: N=4 flagship path")
     n4_options, n4_stack, n4_res, n4_stats = phase_n4_path(n4)
-    log("phase 15: N=10 flagship path")
+    phase("15: N=10 flagship path")
     n10_options, _, n10_stats = phase_n10_path(n10)
-    log("phase 16: N=4 reference check")
+    phase("16: N=4 reference check")
     phase_n4_reference(n4, n4_options, n4_stack, n4_res)
-    log("phase 17: K3 timing")
+    phase("17: K3 timing")
     kernels += phase_k3_timing(k3_bands, k3_errs,
                                n4_stats["launches"]["cr_thomas_solve"]["gjp"],
                                n10_stats["launches"]["cr_thomas_solve"]["gjpr"])
-    log("phase 18: profile of one N=4 flagship batch")
+    phase("18: profile of one N=4 flagship batch")
     phase_profile(n4.mcp, n4_options, n4_stack[0], x0=n4.x0)
-    log(f"phase 19: profile of the N=10 flagship batch's first {N10_PROFILE_OUTER} outer "
-        "iterations")
+    phase(f"19: profile of the N=10 flagship batch's first {N10_PROFILE_OUTER} outer "
+          "iteration(s)")
     phase_profile(n10.mcp, dataclasses.replace(n10_options, max_outer_iters=N10_PROFILE_OUTER),
                   n10.thetas, x0=n10.x0)
+    phase("20: K7a (two-way sweep), and K1 on the padded route, vs plain")
+    k7a_bands, k7a_err = phase_k7a(n4, device)
+    phase(f"21: training path (N=4, horizon 30, batch {TRAIN_B}, tridiag_pallas)")
+    train, ift_bands, train_launches, _ = phase_train_path(device)
+    k7a_check("IFT transposed bands at a training-step solution (8x30x40)", ift_bands)
+    phase(f"22: gradient checks ({GRAD_B} lanes)")
+    ift64_bands, _ = phase_train_gradients(device)
+    k7a_check("IFT transposed bands at a float64 training-step solution (2x30x40)",
+              ift64_bands)
+    phase("23: K7a timing")
+    kernels.append(phase_k7a_timing(k7a_bands, k7a_err, train_launches))
+    phase("24: profile of one train step")
+    phase_train_profile(train)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

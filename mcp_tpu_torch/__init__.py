@@ -20,7 +20,8 @@ raises on a machine without a GPU); solves follow the device of θ.
 """
 
 from .mcp import PrimalDualMCP, verify_affine
-from .solver import SolverOptions, auto_tightening_rate, ip_solve
+from .solver import SolverOptions, auto_tightening_rate, default_initialization, ip_solve
+from .diff import solve, solve_jacobian_theta
 from .types import FAILED, SOLVED, SolveResult
 from .games import OptimizationProblem, ParametricGame, game_to_mcp
 from .parallel.batch import batch_statistics, solve_batch, solve_batches_streamed
@@ -34,6 +35,9 @@ __all__ = [
     "FAILED",
     "auto_tightening_rate",
     "ip_solve",
+    "default_initialization",
+    "solve",
+    "solve_jacobian_theta",
     "OptimizationProblem",
     "ParametricGame",
     "game_to_mcp",

@@ -1,7 +1,8 @@
 """The masked-game flagship shapes: N players on the circle-crossing road
 scenario, all-ones masks, horizon 30, the reference's own timing workload
 (N=4 gives blocks of b=40, N=10 of b=100; the JAX package's
-``bench/flagships.py:10-14, 28``).
+``bench/flagships.py:10-14, 28``), and the solver-in-the-loop training step
+on it (``train_step_setup``, the JAX package's ``:62-118``).
 
 The initial-state noise is drawn from a ``torch.Generator``: it matches the
 JAX package's draw in distribution, not in values.
@@ -9,6 +10,7 @@ JAX package's draw in distribution, not in values.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from types import SimpleNamespace
@@ -58,4 +60,58 @@ def masked_game_setup(
         init=init,
         goals=goals,
         masks=masks,
+    )
+
+
+def train_step_setup(
+    batch: int = 8,
+    players: int = 4,
+    horizon: int = 30,
+    *,
+    tier: str = "tridiag",
+    polish: bool = True,
+    seed: int = 0,
+    device="cuda",
+    dtype=torch.float32,
+):
+    """The solver-in-the-loop training-step flagship (N=4, horizon 30, batch
+    8 by default): the masked game of ``masked_game_setup`` (θ noise from
+    ``seed``) on Newton tier ``tier`` with the banded IFT
+    (``sensitivity_solver="tridiag"``), tightening rate max(auto, 0.05)
+    (partial-mask games need the faster anneal), the terminal polish, the
+    all-ones-mask solve as ground truth and the MLP initialized from a
+    generator seeded 3. Returns a namespace with train_step, eval_step,
+    sgd_update, config, runner, model, trajectories, init, goals, gt (the
+    ground-truth BatchSolution), gt_success and rate."""
+    from ..selection.model import MaskMLP, input_size
+    from ..selection.train import TrainConfig, make_train_step
+    from ..solver import SolverOptions, auto_tightening_rate
+
+    s = masked_game_setup(batch, players, horizon, device=device, dtype=dtype,
+                          generator=torch.Generator().manual_seed(seed))
+    rate = max(auto_tightening_rate(s.mcp), 0.05)
+    runner = dataclasses.replace(
+        s.runner,
+        options=SolverOptions(linear_solver=tier, sensitivity_solver="tridiag",
+                              tightening_rate=rate, polish=polish),
+    )
+    config = TrainConfig(num_players=players, horizon=horizon, batch_size=batch)
+    train_step, eval_step, sgd_update = make_train_step(runner, config)
+    gt = runner.solve(s.init, s.goals, torch.ones_like(s.masks))
+    model = MaskMLP(input_size(players, config.input_horizon, config.input_state_dim),
+                    players, generator=torch.Generator().manual_seed(3), dtype=dtype,
+                    device=s.thetas.device)
+    return SimpleNamespace(
+        train_step=train_step,
+        eval_step=eval_step,
+        sgd_update=sgd_update,
+        config=config,
+        runner=runner,
+        model=model,
+        trajectories=gt.trajectories,
+        init=s.init,
+        goals=s.goals,
+        gt=gt,
+        gt_success=float((gt.result.status == 0).double().mean()),
+        rate=rate,
     )

@@ -8,6 +8,8 @@ port's objects, so both packages can run on the same bands.
 
 The random-QP MCP (``bench/qp.py``) closes over nothing but θ, so nothing of
 it carries across: the same θ, as a numpy array, goes into both packages.
+The mask-predictor MLP does have weights: ``mlp_params_from_numpy`` carries
+them into the port's ``MaskMLP``.
 """
 
 from __future__ import annotations
@@ -46,3 +48,23 @@ def affine_bands_from_numpy(d: dict, device="cuda", dtype=torch.float64) -> Affi
             for k in AffineBands._fields
         )
     )
+
+
+def mlp_params_from_numpy(weights, biases, device="cuda", dtype=torch.float32):
+    """A ``selection.model.MaskMLP`` holding the given layers: weights[i]
+    (out, in) and biases[i] (out,) as host arrays, the layout of the JAX
+    package's ``MLPParams``, on ``device`` in ``dtype``."""
+    from .selection.model import MaskMLP
+
+    weights = [np.asarray(w) for w in weights]
+    num_players = weights[-1].shape[0] + 1
+    model = MaskMLP(weights[0].shape[1], num_players, dtype=dtype, device=device)
+    if len(model.layers) != len(weights):
+        raise ValueError(f"expected {len(model.layers)} layers, got {len(weights)}")
+    with torch.no_grad():
+        for layer, w, b in zip(model.layers, weights, biases):
+            if tuple(layer.weight.shape) != w.shape:
+                raise ValueError(f"layer shape {tuple(layer.weight.shape)} != {w.shape}")
+            layer.weight.copy_(torch.tensor(w))
+            layer.bias.copy_(torch.tensor(np.asarray(b)))
+    return model

@@ -24,7 +24,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("thomas", "linesearch", "gauss_jordan", "qr_dense", "cyclic_reduction")
+SOURCES = ("thomas", "linesearch", "gauss_jordan", "qr_dense", "cyclic_reduction",
+           "thomas_babe")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

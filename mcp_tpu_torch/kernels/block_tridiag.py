@@ -9,8 +9,9 @@ costs O(T·b³) instead of O((Tb)³).
 
 Batch convention: the solver-path functions (``reconstruct_bands``,
 ``gh_banded_fast``, ``banded_newton_step_compressed``, ``banded_jac_mv``,
-``block_thomas_solve``, ``block_cyclic_reduction_solve``) take a leading
-batch axis B on every iterate-shaped argument. ``gh_banded`` and ``build_affine_bands`` work on one instance (the
+``block_thomas_solve``, ``block_cyclic_reduction_solve``, ``extract_blocks``,
+``tridiag_solve_permuted``) take a leading batch axis B on every
+iterate-shaped argument. ``gh_banded`` and ``build_affine_bands`` work on one instance (the
 game build probes them once).
 """
 
@@ -93,6 +94,33 @@ def block_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) 
         x_next = ds[t] - Cs[t] @ x_next
         xs[t] = x_next[..., 0]
     return torch.stack(xs, dim=1)
+
+
+def extract_blocks(A_perm: Tensor, T: int, b: int):
+    """The bands of time-major matrices: (B, Tb, Tb) → diag (B,T,b,b),
+    lower (B,T-1,b,b), upper (B,T-1,b,b); entries outside the band are
+    ignored."""
+    A5 = A_perm.reshape(A_perm.shape[0], T, b, T, b).permute(0, 1, 3, 2, 4)
+    idx = torch.arange(T, device=A_perm.device)
+    return A5[:, idx, idx], A5[:, idx[1:], idx[:-1]], A5[:, idx[:-1], idx[1:]]
+
+
+@functools.lru_cache(maxsize=None)
+def _column_permutation(structure: TimeStructure):
+    perm = np.asarray(structure.permutation, dtype=np.int64)
+    return perm, np.argsort(perm)
+
+
+def tridiag_solve_permuted(A: Tensor, rhs: Tensor, structure: TimeStructure) -> Tensor:
+    """Solve A x = rhs over a batch, A (B, n, n), rhs (B, n), by permuting
+    to time-major block-tridiagonal form (entries of A outside the band are
+    ignored: they are structurally zero for trajectory-game Schur systems)
+    and ``block_thomas_solve``."""
+    perm, inv = (const(a, torch.long, A.device) for a in _column_permutation(structure))
+    T, b = structure.num_blocks, structure.block_size
+    diag, lower, upper = extract_blocks(A[:, perm][:, :, perm], T, b)
+    x = block_thomas_solve(diag, lower, upper, rhs[:, perm].reshape(-1, T, b))
+    return x.reshape(x.shape[0], -1)[:, inv]
 
 
 def block_cyclic_reduction_solve(diag: Tensor, lower: Tensor, upper: Tensor,

@@ -1,28 +1,34 @@
-"""The shape- and batch-aware block-tridiagonal solve of tier
-``"tridiag_auto"``: the JAX package's ``_auto_pick`` and the mode choice of
-``pallas_block_thomas`` (``mcp_tpu/kernels/thomas_pallas.py:1359-1393,
-1512-1573``), routed to this port's kernels.
+"""The shape- and batch-aware block-tridiagonal solves of tiers
+``"tridiag_pallas"`` and ``"tridiag_auto"``: the mode choice of the JAX
+package's ``pallas_block_thomas`` and its ``_auto_pick``
+(``mcp_tpu/kernels/thomas_pallas.py:1359-1393, 1512-1573``), routed to this
+port's kernels.
 
 The thresholds are the JAX package's, copied so that both packages take the
 same route for the same (B, T, b); they were measured on a TPU, and the
-card's own numbers for them are in PERF.md (``chip_smoke.py`` times K1 and
-K3 at the N=4 flagship shape).
+card's own numbers for them are in PERF.md (``chip_smoke.py`` times K1, K3
+and K7a at the N=4 flagship shape).
 
-Routes: ``"cr"`` → K3 (``cyclic_reduction.cr_thomas_solve``) with the
-picked factorization; ``"lanes"`` and the one-way packed sweep → K1
-(``thomas.thomas_solve``). The two-way sweep (``"babe"``, K7a) and the
-unpacked one-way sweep for wide blocks (``"padded"``, K7b) are not ported:
-they raise ``NotImplementedError`` rather than run another algorithm.
+Routes (``route_solver``): ``"cr"`` → K3 (``cyclic_reduction.cr_thomas_solve``)
+with the requested factorization; ``"babe"`` → K7a
+(``thomas_babe.babe_thomas_solve``, the two-way sweep); ``"lanes"``,
+``"packed"`` and ``"padded"`` → K1 (``thomas.thomas_solve``). The lane-major
+(``_thomas_kernel_lanes``), packed (``_thomas_kernel_packed``) and unpacked
+(``_thomas_kernel``, K7b) one-way sweeps all run K1's algebra; which of them
+the JAX package takes is a TPU layout rule (a 128-lane tile of systems, or
+[D|L|U|r] fitting one lane tile).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 
-from .cyclic_reduction import cr_thomas_solve
+from .cyclic_reduction import FACTS, cr_thomas_solve
 from .thomas import thomas_solve
+from .thomas_babe import babe_thomas_solve
 
 Tensor = torch.Tensor
 
@@ -37,6 +43,9 @@ PALLAS_THOMAS_MIDBLOCK = 32
 #: The lane-major sweep's [C | d] scratch budget (a TPU VMEM size; it only
 #: decides the route here, so that both packages take the same one).
 LANES_CD_VMEM_BYTES = 40 * 2**20
+
+#: K3 with each factorization, one callable per fact.
+CR_SOLVERS = {fact: functools.partial(cr_thomas_solve, fact=fact) for fact in FACTS}
 
 
 def auto_pick(B: int, T: int, b: int) -> tuple[Optional[str], str]:
@@ -72,19 +81,31 @@ def kernel_mode(B: int, T: int, b: int, itemsize: int, mode: Optional[str] = Non
     return mode
 
 
+def route_solver(B: int, T: int, b: int, itemsize: int, mode: Optional[str] = None,
+                 fact: str = "qr") -> Callable[[Tensor, Tensor, Tensor, Tensor], Tensor]:
+    """The kernel wrapper that runs ``kernel_mode``'s route for (B, T, b)."""
+    mode = kernel_mode(B, T, b, itemsize, mode, fact)
+    if mode == "cr":
+        return CR_SOLVERS[fact]
+    if fact != "qr":
+        raise NotImplementedError(
+            f"the {mode} sweep with fact={fact!r} needs the K7a/K1 gj, gjp and gjpr "
+            "facts, not ported yet (ROADMAP Queue 2)"
+        )
+    return babe_thomas_solve if mode == "babe" else thomas_solve
+
+
+def pallas_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
+    """Tier "tridiag_pallas": the block-tridiagonal solve (K1's layout) on
+    the route ``pallas_block_thomas`` takes for this (B, T, b) with no mode
+    asked for and fact "qr"."""
+    B, T, b, _ = diag.shape
+    return route_solver(B, T, b, diag.element_size())(diag, lower, upper, rhs)
+
+
 def auto_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
     """Tier "tridiag_auto": the block-tridiagonal solve (K1's layout) on the
     route the JAX package takes for this (B, T, b)."""
     B, T, b, _ = diag.shape
     mode, fact = auto_pick(B, T, b)
-    mode = kernel_mode(B, T, b, diag.element_size(), mode, fact)
-    if mode == "cr":
-        return cr_thomas_solve(diag, lower, upper, rhs, fact=fact)
-    if mode in ("lanes", "packed") and fact == "qr":
-        return thomas_solve(diag, lower, upper, rhs)
-    kernel = {"babe": "K7a (the two-way sweep, thomas_pallas.py:737)",
-              "padded": "K7b (the unpacked sweep, thomas_pallas.py:463)"}.get(mode, mode)
-    raise NotImplementedError(
-        f"tridiag_auto routes (B={B}, T={T}, b={b}) to {kernel}, which is not "
-        "ported yet (ROADMAP Queue 2)"
-    )
+    return route_solver(B, T, b, diag.element_size(), mode, fact)(diag, lower, upper, rhs)

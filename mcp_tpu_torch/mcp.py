@@ -40,7 +40,7 @@ class PrimalDualMCP:
       constrained_dimension: m, size of y (and s).
       parameter_dimension: p, size of θ.
       compute_sensitivities: whether differentiation through a solve is
-        permitted (kept for API parity; differentiation is not ported yet).
+        permitted (``diff.py`` raises a ValueError otherwise).
       GH: optional fused callable returning ``(G, H)`` in one evaluation.
       time_structure: optional ``kernels.block_tridiag.TimeStructure`` of the
         schur-condensed Newton system (set by the trajectory-game builder).

@@ -3,7 +3,10 @@
 Every lane of a batch runs inside one solve; lanes that converge early are
 frozen (see solver.py) while the rest iterate. Tensors follow θ: its device
 and dtype set those of the iterates, and they must match the device the game
-was built on.
+was built on. ``solve_batch`` is differentiable in θ (``diff.py``, the
+implicit function theorem) when θ carries a gradient or a forward-mode
+tangent; otherwise, and in ``solve_batches_streamed``, it solves under
+``no_grad``.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ from typing import Optional
 
 import torch
 
+from ..diff import _solve
 from ..mcp import PrimalDualMCP
-from ..solver import SolverOptions, ip_solve
+from ..solver import SolverOptions, default_initialization, ip_solve
 from ..types import SOLVED, SolveResult
 
 
@@ -22,16 +26,6 @@ def _options(options: Optional[SolverOptions], overrides: dict) -> SolverOptions
     if options is None:
         return SolverOptions(**overrides)
     return dataclasses.replace(options, **overrides) if overrides else options
-
-
-def _initial(mcp: PrimalDualMCP, B: int, like: torch.Tensor, x0, y0, s0):
-    """The reference cold start x = 0, y = s = 1 where not given."""
-    n, m = mcp.unconstrained_dimension, mcp.constrained_dimension
-    kw = dict(dtype=like.dtype, device=like.device)
-    x0 = torch.zeros((B, n), **kw) if x0 is None else torch.as_tensor(x0, **kw)
-    y0 = torch.ones((B, m), **kw) if y0 is None else torch.as_tensor(y0, **kw)
-    s0 = torch.ones((B, m), **kw) if s0 is None else torch.as_tensor(s0, **kw)
-    return x0, y0, s0
 
 
 def solve_batch(
@@ -48,13 +42,13 @@ def solve_batch(
 
     thetas: (B, p) on the game's device; its dtype is the iterate dtype.
     x0/y0/s0: optional (B, n)/(B, m)/(B, m) warm starts.
-    Returns a SolveResult whose fields carry a leading batch axis.
+    Returns a SolveResult whose fields carry a leading batch axis; x, y
+    and s are differentiable in θ when θ requires grad.
     """
     options = _options(options, option_overrides)
     thetas = torch.as_tensor(thetas)
-    x0, y0, s0 = _initial(mcp, thetas.shape[0], thetas, x0, y0, s0)
-    with torch.no_grad():
-        return ip_solve(mcp, options, thetas, x0, y0, s0)
+    x0, y0, s0 = default_initialization(mcp, thetas, x0, y0, s0)
+    return _solve(mcp, options, thetas, x0, y0, s0)
 
 
 def solve_batches_streamed(
@@ -80,8 +74,7 @@ def solve_batches_streamed(
     """
     options = _options(options, option_overrides)
     theta_stack = torch.as_tensor(theta_stack)
-    _, B, _ = theta_stack.shape
-    x, y, s = _initial(mcp, B, theta_stack, x0, y0, s0)
+    x, y, s = default_initialization(mcp, theta_stack[0], x0, y0, s0)
     results = []
     with torch.no_grad():
         for th in theta_stack:

@@ -1,7 +1,8 @@
 """Masked-game solving driver: batched open-loop solves and closed-loop
 stepping of the masked N-player games (the JAX package's
 ``selection/runner.py:38-176``). Whole scenario batches solve in one batched
-call.
+call. ``solve`` is differentiable in the masks (and every other θ entry)
+through ``solve_batch``'s implicit-function-theorem rule.
 
 ``generate_ground_truth`` needs the scenario data layer and is not ported
 yet (ROADMAP Queue 1 item 11).
@@ -70,11 +71,10 @@ class MaskedGameRunner:
 
     def ego_masked_mask_rows(self, masks: torch.Tensor, *, ego_index: int = 0) -> torch.Tensor:
         """(B, N) learned masks → (B, N, N) per-player mask rows: the ego
-        row is the learned mask, the others all-ones."""
-        rows = torch.ones((masks.shape[0], self.N, self.N), dtype=masks.dtype,
-                          device=masks.device)
-        rows[:, ego_index, :] = masks
-        return rows
+        row is the learned mask, the others all-ones (gradients flow to the
+        ego row)."""
+        ones = torch.ones_like(masks)
+        return torch.stack([masks if i == ego_index else ones for i in range(self.N)], dim=1)
 
     def cold_starts(self, initial_states: torch.Tensor) -> torch.Tensor:
         """(B, N, 4) → (B, n) zero-input-rollout primal seeds."""

@@ -30,10 +30,11 @@ one host sync (a ``.any()`` read).
 
 Linear-solver tiers: the banded tiers of trajectory games (``BANDED_SOLVERS``:
 ``"tridiag"`` and ``"tridiag_cr"``, the plain LU block-Thomas and cyclic
-reduction; ``"tridiag_pallas"`` → K1; ``"tridiag_pallas_cr"``,
+reduction; ``"tridiag_pallas"``, the JAX package's shape- and batch-aware
+route to K1, the two-way sweep K7a or K3 with QR; ``"tridiag_pallas_cr"``,
 ``"tridiag_pallas_crgjp"``, ``"tridiag_pallas_crgjpr"`` → K3 with the qr,
 gjp and gjpr factorizations; ``"tridiag_auto"``, the JAX package's shape-
-and batch-aware route to K1 or K3; the fused K2 linesearch on
+and batch-aware route to K1, K7a or K3; the fused K2 linesearch on
 ``"tridiag_pallas"`` and ``"tridiag_auto"``) and the dense tiers of ``linalg.py``
 (``"dense"``, ``"condensed"``, ``"schur"``, ``"schur_pallas"`` → K4b/K4c,
 ``"schur_pallas_gj"`` → K4a, ``"schur_pallas_gjr"`` → K5). The dense tiers
@@ -45,7 +46,6 @@ yet raise ``NotImplementedError`` naming the ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 import warnings
 from typing import Optional
@@ -61,10 +61,8 @@ from .kernels.block_tridiag import (
     block_thomas_solve,
     gh_banded_fast,
 )
-from .kernels.cyclic_reduction import cr_thomas_solve
 from .kernels.linesearch import _candidate_tensor, linesearch_update
-from .kernels.thomas import thomas_solve
-from .kernels.thomas_dispatch import auto_thomas_solve
+from .kernels.thomas_dispatch import CR_SOLVERS, auto_thomas_solve, pallas_thomas_solve
 from .linalg import GMRES_NOT_PORTED, NEWTON_STEPS, factored_newton_solver
 from .mcp import PrimalDualMCP
 from .types import FAILED, SOLVED, SolveResult
@@ -185,10 +183,10 @@ def fraction_to_the_boundary_linesearch_pair(
 BANDED_SOLVERS = {
     "tridiag": block_thomas_solve,
     "tridiag_cr": block_cyclic_reduction_solve,
-    "tridiag_pallas": thomas_solve,
-    "tridiag_pallas_cr": functools.partial(cr_thomas_solve, fact="qr"),
-    "tridiag_pallas_crgjp": functools.partial(cr_thomas_solve, fact="gjp"),
-    "tridiag_pallas_crgjpr": functools.partial(cr_thomas_solve, fact="gjpr"),
+    "tridiag_pallas": pallas_thomas_solve,
+    "tridiag_pallas_cr": CR_SOLVERS["qr"],
+    "tridiag_pallas_crgjp": CR_SOLVERS["gjp"],
+    "tridiag_pallas_crgjpr": CR_SOLVERS["gjpr"],
     "tridiag_auto": auto_thomas_solve,
 }
 #: The JAX package's other banded tiers, with the kernel each still needs.
@@ -247,6 +245,27 @@ def _check_supported(mcp: PrimalDualMCP, options: SolverOptions):
             "only matmul_precision='highest' (TF32 off) is ported "
             "(ROADMAP Queue 1 item 5)"
         )
+
+
+def default_initialization(
+    mcp: PrimalDualMCP,
+    theta: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    y0: Optional[torch.Tensor] = None,
+    s0: Optional[torch.Tensor] = None,
+    dtype=None,
+):
+    """The reference cold start x₀ = 0, y₀ = s₀ = 1 where not given, shaped
+    after θ's leading axes (θ (p,) → (n,), θ (B, p) → (B, n)), in ``dtype``
+    (default θ's) on θ's device."""
+    theta = torch.as_tensor(theta)
+    lead = tuple(theta.shape[:-1])
+    kw = dict(dtype=dtype or theta.dtype, device=theta.device)
+    n, m = mcp.unconstrained_dimension, mcp.constrained_dimension
+    x0 = torch.zeros(lead + (n,), **kw) if x0 is None else torch.as_tensor(x0, **kw)
+    y0 = torch.ones(lead + (m,), **kw) if y0 is None else torch.as_tensor(y0, **kw)
+    s0 = torch.ones(lead + (m,), **kw) if s0 is None else torch.as_tensor(s0, **kw)
+    return x0, y0, s0
 
 
 def ip_solve(

@@ -1,6 +1,6 @@
 """K3 (block cyclic reduction with the qr/gjp/gjpr factorizations) and the
-tridiag_auto dispatcher of the PyTorch port, held against the JAX package
-on the same numpy inputs, in float64 on the CPU. The JAX in-block facts and
+tridiag_pallas and tridiag_auto dispatchers of the PyTorch port, held
+against the JAX package on the same numpy inputs, in float64 on the CPU. The JAX in-block facts and
 ``_cr_solve`` are plain jnp code, called directly (as tests/test_tridiag.py
 calls the facts); the route of ``pallas_block_thomas`` is read under
 ``jax.eval_shape`` with its kernel launchers replaced by recorders."""
@@ -22,6 +22,8 @@ from mcp_tpu_torch.kernels.block_tridiag import (
     block_cyclic_reduction_solve,
 )
 from mcp_tpu_torch.kernels.thomas import thomas_solve_plain
+from mcp_tpu_torch.kernels.thomas_babe import babe_solve_plain
+from mcp_tpu_torch.solver import BANDED_SOLVERS
 
 torch.set_num_threads(1)
 
@@ -231,13 +233,76 @@ def test_auto_route_matches_jax(B, dtype):
             B, T, b, dtype, mode, fact)
 
 
-@pytest.mark.parametrize("shape, kernel", [((8, 20, 20), "K7a"), ((128, 30, 64), "K7b")])
-def test_auto_routes_to_unported_sweeps_raise(shape, kernel):
+def _tier_routes(monkeypatch):
+    """Replace the kernel wrappers the dispatcher can reach by recorders;
+    returns (seen, route of one call of a tier's solve at (B, T, b))."""
+    seen = []
+
+    def recorder(name):
+        def solve(diag, lower, upper, rhs):
+            seen.append(name)
+            return rhs
+        return solve
+
+    monkeypatch.setattr(TD, "thomas_solve", recorder("K1"))
+    monkeypatch.setattr(TD, "babe_thomas_solve", recorder("K7a"))
+    for fact in TD.CR_SOLVERS:
+        monkeypatch.setitem(TD.CR_SOLVERS, fact, recorder(f"K3-{fact}"))
+
+    def route(tier, B, T, b, dtype):
+        zero = torch.zeros((), dtype=dtype)
+        BANDED_SOLVERS[tier](zero.expand(B, T, b, b), zero.expand(B, T - 1, b, b),
+                             zero.expand(B, T - 1, b, b), zero.expand(B, T, b))
+        return seen.pop()
+
+    return route
+
+
+#: The port's kernel for each launcher of ``pallas_block_thomas``: the
+#: lane-major, packed and unpacked (K7b) one-way sweeps are K1's algebra.
+PORT_KERNEL = {"babe": "K7a", "lanes": "K1", "packed": "K1", "padded": "K1"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 8, 127, 128, 256])
+def test_pallas_tier_route_matches_jax(B, dtype, monkeypatch):
+    """Tier "tridiag_pallas" dispatches every (B, T, b) of the grid to the
+    counterpart of the launcher the JAX package's ``thomas_solve`` (mode
+    None, fact "qr") reaches."""
+    route = _tier_routes(monkeypatch)
+    jdtype = {torch.float32: jnp.float32, torch.float64: jnp.float64}[dtype]
+    for T, b in GRID:
+        want = _jax_route(B, T, b, jdtype, None, "qr")
+        assert route("tridiag_pallas", B, T, b, dtype) == PORT_KERNEL.get(want, "K3-qr"), (
+            B, T, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 8, 127, 128, 256])
+def test_auto_tier_route_matches_jax(B, dtype, monkeypatch):
+    """Tier "tridiag_auto" likewise, with ``_auto_pick``'s mode and fact."""
+    route = _tier_routes(monkeypatch)
+    jdtype = {torch.float32: jnp.float32, torch.float64: jnp.float64}[dtype]
+    for T, b in GRID:
+        mode, fact = jtp._auto_pick(B, T, b)
+        want = _jax_route(B, T, b, jdtype, mode, fact)
+        assert route("tridiag_auto", B, T, b, dtype) == PORT_KERNEL.get(want, f"K3-{fact}"), (
+            B, T, b)
+
+
+@pytest.mark.parametrize("shape, kernel", [((8, 20, 20), "K7a"), ((128, 30, 64), "K1")])
+def test_auto_routes_to_unported_sweeps_raise(shape, kernel, monkeypatch):
+    """The two shapes whose routes once raised NotImplementedError (the
+    two-way sweep K7a, and the unpacked one-way sweep K7b, which is K1's
+    algebra) now reach babe_thomas_solve and K1; the tier raises on no
+    route any more."""
     B, T, b = shape
-    diag = torch.zeros(1, 1, b, b).expand(B, T, b, b)
-    band = torch.zeros(1, 1, b, b).expand(B, T - 1, b, b)
-    with pytest.raises(NotImplementedError, match=kernel):
-        TD.auto_thomas_solve(diag, band, band, torch.zeros(B, T, b))
+    assert _tier_routes(monkeypatch)("tridiag_auto", B, T, b, torch.float32) == kernel
+    monkeypatch.undo()
+    arrs = _t(_bands(2, T, b, seed=b))
+    want = (babe_solve_plain if kernel == "K7a" else thomas_solve_plain)(*arrs)
+    torch.testing.assert_close(TD.route_solver(B, T, b, 8, *TD.auto_pick(B, T, b))(*arrs),
+                               want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("shape, fact", [((2, 6, 40), "gjp"), ((2, 5, 65), "gjpr"),

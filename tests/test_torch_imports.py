@@ -175,3 +175,49 @@ def test_flagship_lanes_reads_each_lane_on_the_cpu(tmp_path, capsys):
     # The file holds the draw's own states (cast to float32 and back).
     assert from_file["status"] == own["status"]
     assert from_file["outer_iters"] == own["outer_iters"]
+
+
+def test_scan_covers_the_differentiation_and_training_modules():
+    """The import scan above reaches the modules of the differentiable solve,
+    the two-way sweep and the training step."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("diff.py", "kernels/thomas_babe.py", "selection/model.py",
+                "selection/loss.py", "selection/train.py"):
+        assert f"mcp_tpu_torch/{rel}" in names
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    import numpy as np
+
+    from mcp_tpu_torch.bench import flagships
+    from mcp_tpu_torch.convert import mlp_params_from_numpy
+    from mcp_tpu_torch.selection import MaskMLP
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        flagships.train_step_setup(2, 2, 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MaskMLP(8, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mlp_params_from_numpy([np.zeros((1, 8))], [np.zeros(1)])
+
+
+def test_cpu_gradient_through_the_two_way_sweep_builds_nothing():
+    """A gradient through a masked-game solve on tier "tridiag_pallas" whose
+    route is the two-way sweep (T = 20) runs K7a's plain version on the CPU,
+    in the solve and in the IFT: no nvcc, no launch counted."""
+    from mcp_tpu_torch import SolverOptions, solve_batch
+    from mcp_tpu_torch.bench import flagships
+    from mcp_tpu_torch.kernels import _build
+    from mcp_tpu_torch.kernels.thomas_babe import babe_thomas_solve
+
+    before = babe_thomas_solve.launches
+    s = flagships.masked_game_setup(2, 2, 20, device="cpu", dtype=torch.float64)
+    th = s.thetas.clone().requires_grad_()
+    res = solve_batch(s.mcp, th, x0=s.x0, options=SolverOptions(
+        linear_solver="tridiag_pallas", sensitivity_solver="tridiag", max_outer_iters=3))
+    (g,) = torch.autograd.grad(res.x.sum(), th)
+    assert g.shape == th.shape and bool(torch.isfinite(g).all())
+    assert babe_thomas_solve.launches == before
+    assert not _build._LIBS
