@@ -22,12 +22,18 @@ before it and read just after:
     horizon 30, batch 8, float32: MLP → masked-game solve → loss → IFT
     gradient → SGD; the two-way sweep K7a in the forward and the backward,
     K2), one warm and three timed steps;
+  * the fact tiers, every other banded tier of the JAX package (its
+    Gauss–Jordan in-block factorizations in the one-way sweep K1′, the
+    two-way sweep K7a and cyclic reduction K3): the lane-change headline
+    (2048 instances) on "tridiag_pallas_gjpr", one lane-change batch of 256
+    on each of ten tiers, one N=4 flagship batch on each of four;
 
 certifies each result with the true KKT residual, checks a few lanes
 against a float64 CPU reference, checks the training gradient against
 finite differences (float64) and against the CPU's float64 gradient, times
-each kernel beside its bound, its plain version and a library call,
-profiles one batch of each path (the first outer iteration of the N=10
+each kernel (and each fact) beside its bound, its plain version and a
+library call, compares K3's refined facts gjpr, gjbpr and gjbprl in turns
+on the N=10 bands, profiles one batch of each path (the first outer iteration of the N=10
 batch) and one train step, and
 prints as its last line
 
@@ -124,6 +130,51 @@ K3_TOL = {"float32": 1e-3, "float64": 1e-10}
 K3_BWD_TOL = {"float32": 100 * 2.0**-23, "float64": 100 * 2.0**-52}
 # K7a (the two-way sweep) is held to K3's rule above.
 
+# The fact tiers: every linear_solver of the JAX package's banded tier table
+# whose route runs a Gauss–Jordan fact of K1′ (the packed one-way sweep), K7a
+# or K3. Path A: the lane-change headline (2048 instances) on
+# "tridiag_pallas_gjpr" with the fused K2 linesearch (bench.py --tier
+# tridiag_pallas_gjpr --fused-linesearch on: the headline's iteration with
+# only the block factorization changed). Path B: one lane-change batch of B
+# on each tier below, with the kernel and fact its route runs at (256, 10,
+# 20). The success floors are where the JAX package's tests solve on the tier
+# (tests/test_tridiag.py:199-218, 352-404, 4 lanes each), 0.99 of a batch of
+# 256, except gjp: unrefined Gauss–Jordan is not backward stable, and the JAX
+# package records it dropping ~3% of near-boundary lanes at large batch
+# (thomas_pallas.py:399-401; 6 of 256 on the card, PERF.md §6 PR 5), hence
+# 0.95. The pivot-free tiers have none (the JAX package records them losing
+# lanes or returning inf on game blocks), but every lane a tier marks SOLVED
+# must be certified. Every tier runs before a failure is reported.
+PATH_B = (
+    ("tridiag_pallas_gj", "thomas", "gj", None),
+    ("tridiag_pallas_gjp", "thomas", "gjp", 0.95),
+    ("tridiag_pallas_lanes", "thomas", "qr", 0.99),
+    ("tridiag_pallas_crgj", "cr", "gj", None),
+    ("tridiag_pallas_crgjb", "cr", "gjb", None),
+    ("tridiag_pallas_crgjbr", "cr", "gjbr", None),
+    ("tridiag_pallas_crgjbr2", "cr", "gjbr2", None),
+    ("tridiag_pallas_crgjbpr", "cr", "gjbpr", 0.99),
+    ("tridiag_pallas_crgjbpr2", "cr", "gjbpr2", 0.99),
+    ("tridiag_pallas_crgjbprl", "cr", "gjbprl", 0.99),
+)
+# Path C: one N=4 flagship batch (phase 14's options and θ draw) per tier;
+# the two-way sweep K7a at (8, 30, 40) for the sweep tiers.
+PATH_C = (
+    ("tridiag_pallas_gj", "babe", "gj", None),
+    ("tridiag_pallas_gjp", "babe", "gjp", 0.9),
+    ("tridiag_pallas_gjpr", "babe", "gjpr", 0.9),
+    ("tridiag_pallas_crgjbpr", "cr", "gjbpr", 0.9),
+)
+# The facts' kernels against their plain versions: K3's rule, with float64
+# held to 1e-12 of max|x| (the eliminations round as the plain versions; the
+# products sum in another order).
+FACT_TOL = {"float32": K3_TOL["float32"], "float64": 1e-12}
+FACT_SOURCE = {"thomas": ("thomas_solve", "thomas.cu", "mcp_tpu/kernels/thomas_pallas.py:516"),
+               "babe": ("babe_thomas_solve", "thomas_babe.cu",
+                        "mcp_tpu/kernels/thomas_pallas.py:737"),
+               "cr": ("cr_thomas_solve", "cyclic_reduction.cu",
+                      "mcp_tpu/kernels/thomas_pallas.py:1154")}
+
 # The solver-in-the-loop training step (the JAX package's
 # scripts/bench_train_step.py at its flagship shape, N=4, horizon 30, batch
 # 8, float32) on tier "tridiag_pallas", whose route there is K7a in the
@@ -190,6 +241,34 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def banded_wrappers():
+    """The kernel wrappers the banded paths can reach, by short name."""
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_thomas_solve
+    from mcp_tpu_torch.kernels.linesearch import linesearch_update
+    from mcp_tpu_torch.kernels.thomas import thomas_solve
+    from mcp_tpu_torch.kernels.thomas_babe import babe_thomas_solve
+
+    return {"thomas": thomas_solve, "babe": babe_thomas_solve, "cr": cr_thomas_solve,
+            "linesearch": linesearch_update}
+
+
+def reset_counts():
+    """Set every banded wrapper's launch count to 0 (each fact's, for the
+    wrappers that count per fact)."""
+    for w in banded_wrappers().values():
+        w.launches = dict.fromkeys(w.launches, 0) if isinstance(w.launches, dict) else 0
+
+
+def read_counts():
+    """A copy of every banded wrapper's launch count."""
+    return {k: dict(w.launches) if isinstance(w.launches, dict) else w.launches
+            for k, w in banded_wrappers().items()}
+
+
+def total(count):
+    return sum(count.values()) if isinstance(count, dict) else count
+
+
 # -- K1 --------------------------------------------------------------------
 
 
@@ -251,6 +330,19 @@ def first_newton_bands(mcp, thetas, x=None):
     return captured[0]
 
 
+def lane_change_bands(dtype, device):
+    """The lane-change first-Newton bands (B, 10, 20) of θ drawn from seed 11,
+    in ``dtype``."""
+    import torch
+
+    from mcp_tpu_torch.bench import lane_change as lc
+
+    bench = lc.generate_test_problem(horizon=10, device=device)
+    th = lc.generate_parameter_batch(torch.Generator().manual_seed(11), B, bench,
+                                     dtype=torch.float32, device=device)
+    return first_newton_bands(bench.parametric_game.mcp, th.to(dtype))
+
+
 def k1_check(name, args, tol, relative=False):
     import torch
 
@@ -272,7 +364,7 @@ def k1_check(name, args, tol, relative=False):
     return err * scale
 
 
-def phase_k1(mcp, device):
+def phase_k1(device):
     import torch
 
     from mcp_tpu_torch.kernels.thomas import thomas_solve, thomas_solve_plain
@@ -283,12 +375,7 @@ def phase_k1(mcp, device):
     k1_check("random (3,7,5) f32", random_bands((3, 7, 5), f32, device, 3), K1_TOL)
     k1_check("random (256,10,20) f64", random_bands((256, 10, 20), f64, device, 4), K1_F64_TOL)
     k1_check("random (2,1,64) f64", random_bands((2, 1, 64), f64, device, 5), K1_F64_TOL)
-    gen = torch.Generator().manual_seed(11)
-    from mcp_tpu_torch.bench import lane_change as lc
-
-    bench = lc.generate_test_problem(horizon=10, device=device)
-    thetas = lc.generate_parameter_batch(gen, B, bench, dtype=f32, device=device)
-    real = first_newton_bands(mcp, thetas)
+    real = lane_change_bands(f32, device)
     err = k1_check("lane-change first Newton step (256,10,20) f32", real,
                    K1_REAL_TOL, relative=True)
     # A zero pivot gives non-finite x in both versions, on that system only.
@@ -375,8 +462,11 @@ def phase_k2(device, shapes=((B, 200, 250),)):
 # -- main path -------------------------------------------------------------
 
 
-def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026):
-    """Drive the user entry points; returns (stats dict, launch counts)."""
+def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026, tier="tridiag_pallas",
+                    fact="qr", name="main path", **overrides):
+    """Drive the user entry points with the headline options on ``tier``
+    (plus ``overrides``); K1 with ``fact`` must launch, and no other banded
+    kernel. Returns (mcp, options, stack, result, launch counts)."""
     import torch
 
     from mcp_tpu_torch import (
@@ -389,8 +479,6 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026):
     )
     from mcp_tpu_torch.bench import lane_change as lc
     from mcp_tpu_torch.bench.harness import true_kkt_errors
-    from mcp_tpu_torch.kernels.linesearch import linesearch_update
-    from mcp_tpu_torch.kernels.thomas import thomas_solve
 
     t0 = time.perf_counter()
     bench = lc.generate_test_problem(horizon=10, device=device)
@@ -398,7 +486,8 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026):
     log(f"  game built in {time.perf_counter() - t0:.2f} s: n={mcp.unconstrained_dimension} "
         f"m={mcp.constrained_dimension} p={mcp.parameter_dimension} "
         f"T={mcp.time_structure.num_blocks} b={mcp.time_structure.block_size}")
-    options = SolverOptions(**HEADLINE, tightening_rate=auto_tightening_rate(mcp))
+    options = SolverOptions(**{**HEADLINE, "linear_solver": tier, **overrides},
+                            tightening_rate=auto_tightening_rate(mcp))
     gen = torch.Generator().manual_seed(seed)
     warm = lc.generate_parameter_batch(gen, batch, bench, dtype=torch.float32, device=device)
     stack = torch.stack([
@@ -409,8 +498,7 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026):
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
 
-    thomas_solve.launches = 0
-    linesearch_update.launches = 0
+    reset_counts()
     t1 = time.perf_counter()
     if device == "cuda":
         start = torch.cuda.Event(enable_timing=True)
@@ -421,7 +509,7 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026):
         end.record()
     sync()
     wall_s = time.perf_counter() - t1
-    launches = {"thomas": thomas_solve.launches, "linesearch": linesearch_update.launches}
+    launches = read_counts()
     device_s = start.elapsed_time(end) / 1e3 if device == "cuda" else float("nan")
 
     tk = true_kkt_errors(mcp, res, stack)
@@ -439,15 +527,18 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026):
         window_s_host=wall_s,
         launches=launches,
     )
-    log("  main path: " + json.dumps(stats))
+    log(f"  {name} ({tier}): " + json.dumps(stats))
     check(tuple(res.x.shape) == (k_batches, batch, mcp.unconstrained_dimension),
-          "main path: result shape")
-    check(bool(torch.isfinite(res.x[solved]).all()), "main path: non-finite solved x")
-    check(stats["success_rate"] >= 0.99, f"main path: success {stats['success_rate']} < 0.99")
+          f"{name}: result shape")
+    check(bool(torch.isfinite(res.x[solved]).all()), f"{name}: non-finite solved x")
+    check(stats["success_rate"] >= 0.99, f"{name}: success {stats['success_rate']} < 0.99")
     check(not bool((solved & (tk > options.tol)).any()),
-          "main path: a SOLVED lane has true KKT above tol")
-    check(launches["thomas"] > 0 and launches["linesearch"] > 0,
-          f"main path: a kernel never launched {launches}")
+          f"{name}: a SOLVED lane has true KKT above tol")
+    others = {k: v for k, v in launches["thomas"].items() if k != fact}
+    check(launches["thomas"][fact] > 0 and launches["linesearch"] > 0,
+          f"{name}: a kernel never launched {launches}")
+    check(not any(others.values()) and not total(launches["babe"]) and not total(launches["cr"]),
+          f"{name}: another banded kernel launched {launches}")
     return mcp, options, stack, res, launches
 
 
@@ -867,18 +958,46 @@ def phase_profile(mcp, options, thetas, x0=None):
 # -- timing ----------------------------------------------------------------
 
 
-def thomas_counts(Bn, T, b, shared_bands, itemsize=4):
+def aug_flops(b, nrhs, fact):
+    """Operations of one in-block solve of b×(b + nrhs) by ``fact``, counted
+    from the loops of ``csrc/solve_aug.cuh``: QR's column norms, uᵀM and
+    rank-1 updates and the back substitution; Gauss–Jordan's multipliers,
+    pivot-row scaling and row updates over the columns each step touches
+    (every column for gjp, those right of the pivot for gj), gjp's pivot
+    scores (3 per row and step) and head contraction; the blocked facts'
+    panel steps (u, the slab right of the step's column, W) and trailing
+    products; with refinement the identity columns and per step A·X, the
+    residual, A⁻¹·E and the update."""
+    from mcp_tpu_torch.kernels.solve_aug import FACT_CODES, GJB_PANEL
+
+    family, refine = FACT_CODES[fact]
+    ld = b + nrhs + (b if refine else 0)
+    if family == 0:
+        return (sum(2 * (b - k) + 4 * (b - k) * (ld - k) for k in range(b))
+                + nrhs * sum(2 * (b - 1 - k) + 1 for k in range(b)))
+    if family == 1:
+        flops = sum(b + (ld - k - 1) * (2 * b - 1) for k in range(b))
+    elif family == 2:
+        flops = b * (3 * b + b + ld * (2 * b - 1)) + 2 * b * b * (ld - b)
+    else:
+        flops = 0
+        for k0 in range(0, b, GJB_PANEL):
+            w = min(GJB_PANEL, b - k0)
+            for j in range(w):
+                flops += b + 2 * b * (w - j - 1) + w + 2 * b * w + (3 * b if family == 4 else 0)
+            flops += (2 * w + 1) * b * (ld - k0 - w)
+    return flops + refine * (4 * b * b * nrhs + 2 * b * nrhs)
+
+
+def thomas_counts(Bn, T, b, shared_bands, itemsize=4, fact="qr"):
     """(bytes, flops) the sweep needs: inputs read once, x written once;
-    flops of the forward elimination, the QR of each step and both
-    substitutions."""
+    flops of the forward elimination, the in-block solve of each step
+    (``aug_flops``) and both substitutions."""
     band = (T - 1) * b * b * itemsize * (1 if shared_bands else Bn)
     nbytes = Bn * T * b * b * itemsize + 2 * band + 2 * Bn * T * b * itemsize
-    nc = 2 * b + 1
-    qr = sum(4 * (b - k) * (nc - k) for k in range(b))
-    backsub = sum(2 * (b - 1 - k) * (b + 1) + (b + 1) for k in range(b))
     elim = 2 * b * b * (b + 1)  # L·[C | d], steps t ≥ 1
     bwd = 2 * b * b
-    flops = Bn * (T * (qr + backsub + bwd) + (T - 1) * elim)
+    flops = Bn * (T * (aug_flops(b, b + 1, fact) + bwd) + (T - 1) * elim)
     return nbytes, flops
 
 
@@ -946,7 +1065,7 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
         {"name": "thomas_solve", "route": "cuda",
          "source": "mcp_tpu_torch/kernels/csrc/thomas.cu",
          "replaces": "mcp_tpu/kernels/thomas_pallas.py:852",
-         "launches": launches["thomas"], "max_abs_err": k1_err,
+         "launches": launches["thomas"]["qr"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib},
         {"name": "linesearch_update", "route": "cuda",
@@ -1022,37 +1141,64 @@ def block_backward_error(diag, lower, upper, rhs, x):
     return amax(Ax - r) / (rows.flatten(1).amax(dim=1) * amax(x) + amax(r))
 
 
-def block_check(label, kernel, plain, args):
+def block_check(label, kernel, plain, args, tol=K3_TOL):
     """A block-tridiagonal kernel against its plain version on ``args`` by
-    K3's rule (max|kernel − plain|/max|plain| within K3_TOL; each system's
+    K3's rule (max|kernel − plain|/max|plain| within ``tol``; each system's
     backward error ≤ 100 ε or ≤ 2x the plain version's): returns the max
-    absolute difference."""
+    absolute difference. A system the plain version leaves non-finite (the
+    pivot-free Gauss–Jordan facts on game blocks in float32) must be
+    non-finite in the kernel's output too and is left out of the
+    comparison; every other system must be finite."""
     import torch
 
     xk = kernel(*args)
     torch.cuda.synchronize()
     xp = plain(*args)
     tag = str(args[0].dtype)[6:]
-    err = float((xk - xp).abs().max())
-    rel = err / max(float(xp.abs().max()), 1e-30)
-    bk, bp = block_backward_error(*args, xk), block_backward_error(*args, xp)
+    bad_k = ~torch.isfinite(xk).flatten(1).all(dim=1)
+    bad_p = ~torch.isfinite(xp).flatten(1).all(dim=1)
+    ok = ~bad_p
+    err = float((xk[ok] - xp[ok]).abs().max()) if bool(ok.any()) else 0.0
+    rel = err / max(float(xp[ok].abs().max()), 1e-30) if bool(ok.any()) else 0.0
+    sub = tuple(a[ok] if a.stride(0) else a[:1].expand(int(ok.sum()), *a.shape[1:])
+                for a in args)
+    bk, bp = block_backward_error(*sub, xk[ok]), block_backward_error(*sub, xp[ok])
     over = int((bk > torch.clamp(2 * bp, min=K3_BWD_TOL[tag])).sum())
+    bk_max, bp_max = (float(e.max()) if len(e) else 0.0 for e in (bk, bp))
     log(f"  {label} {tag}: max|kernel-plain|/max|plain|={rel:.3e} (tol "
-        f"{K3_TOL[tag]:g}); backward error kernel {float(bk.max()):.3e} plain "
-        f"{float(bp.max()):.3e} (tol {K3_BWD_TOL[tag]:.3e} or 2x plain; systems over: "
-        f"{over})")
-    check(bool(torch.isfinite(xk).all()), f"{label}: non-finite kernel output")
-    check(rel <= K3_TOL[tag], f"{label}: kernel and plain differ by {rel:.3e}")
-    check(over == 0, f"{label}: kernel backward error {float(bk.max()):.3e}")
+        f"{tol[tag]:g}); backward error kernel {bk_max:.3e} plain {bp_max:.3e} (tol "
+        f"{K3_BWD_TOL[tag]:.3e} or 2x plain; systems over: {over})"
+        + (f"; non-finite systems kernel {int(bad_k.sum())} plain {int(bad_p.sum())} of "
+           f"{len(bad_p)}" if bool(bad_p.any() or bad_k.any()) else ""))
+    check(torch.equal(bad_k, bad_p), f"{label}: non-finite kernel output where the plain "
+          f"version's is finite, or the reverse")
+    check(rel <= tol[tag], f"{label}: kernel and plain differ by {rel:.3e}")
+    check(over == 0, f"{label}: kernel backward error {bk_max:.3e}")
     return err
 
 
-def k3_check(name, args, fact):
-    """K3 against its plain version: returns the max absolute difference."""
-    from mcp_tpu_torch.kernels.cyclic_reduction import cr_solve_plain, cr_thomas_solve
+def fact_solver(kernel, fact, plain=False):
+    """The wrapper (or its plain version) of ``kernel`` with ``fact``."""
+    from mcp_tpu_torch.kernels import cyclic_reduction as C
+    from mcp_tpu_torch.kernels import thomas as K1
+    from mcp_tpu_torch.kernels import thomas_babe as K7
 
-    return block_check(f"K3 {fact} {name}", lambda *a: cr_thomas_solve(*a, fact=fact),
-                       lambda *a: cr_solve_plain(*a, fact), args)
+    if plain:
+        fn = {"thomas": K1.thomas_solve_plain, "babe": K7.babe_solve_plain,
+              "cr": C.cr_solve_plain}[kernel]
+        return lambda *a: fn(*a, fact)
+    fn = {"thomas": K1.thomas_solve, "babe": K7.babe_thomas_solve,
+          "cr": C.cr_thomas_solve}[kernel]
+    return lambda *a: fn(*a, fact=fact)
+
+
+def fact_check(kernel, fact, what, args, tol=K3_TOL):
+    """``kernel`` ("thomas": K1, "babe": K7a, "cr": K3) with ``fact`` against
+    its plain version by ``block_check``: returns the max absolute
+    difference."""
+    name = {"thomas": "K1'", "babe": "K7a", "cr": "K3"}[kernel]
+    return block_check(f"{name} {fact} {what}", fact_solver(kernel, fact),
+                       fact_solver(kernel, fact, plain=True), args, tol)
 
 
 def phase_k3(real_lane_bands, n4, n10, device):
@@ -1080,15 +1226,14 @@ def phase_k3(real_lane_bands, n4, n10, device):
                     continue
                 raise PhaseFailed(f"K3 {fact}: b={b} float64 was not refused")
             shape = "x".join(map(str, real[0].shape[:3]))
-            err = k3_check(f"first Newton step ({shape})", real, fact)
+            err = fact_check("cr", fact, f"first Newton step ({shape})", real)
             if dtype == f32:
                 bands[fact], errs[fact] = real, err
-        k3_check("random (8x30x{})".format(bands[fact][0].shape[-1]),
-                 random_bands((FLAG_B, FLAG_T, bands[fact][0].shape[-1]), f32, device, 41),
-                 fact)
-    k3_check("lane-change first Newton step (256x10x20)", real_lane_bands, "qr")
-    k3_check("random (16x64x20)", random_bands((16, 64, 20), f32, device, 42), "qr")
-    k3_check("random (3x13x6)", random_bands((3, 13, 6), f64, device, 43), "gjpr")
+        fact_check("cr", fact, "random (8x30x{})".format(bands[fact][0].shape[-1]),
+                   random_bands((FLAG_B, FLAG_T, bands[fact][0].shape[-1]), f32, device, 41))
+    fact_check("cr", "qr", "lane-change first Newton step (256x10x20)", real_lane_bands)
+    fact_check("cr", "qr", "random (16x64x20)", random_bands((16, 64, 20), f32, device, 42))
+    fact_check("cr", "gjpr", "random (3x13x6)", random_bands((3, 13, 6), f64, device, 43))
     # A singular odd block in system 1: QR divides by its zero pivot (inf/NaN
     # there only); Gauss–Jordan clamps the pivot and contracts with a zero
     # head column (finite values, as the plain version).
@@ -1111,21 +1256,20 @@ def phase_k3(real_lane_bands, n4, n10, device):
     return bands, errs
 
 
-def run_flagship(name, s, options, stack, x0, fact):
+def run_flagship(name, s, options, stack, x0, fact, kernel="cr"):
     """Solve ``stack`` (K, B, p) through solve_batches_streamed, CUDA-event
     timed, with every launch count set to 0 just before and read just
-    after; certify each lane's true KKT in float32."""
+    after; certify each lane's true KKT in float32. The banded kernel
+    ``kernel`` ("cr", "babe" or "thomas") must launch with ``fact`` and no
+    other banded kernel or fact; K2 must launch where the options fuse the
+    linesearch."""
     import torch
 
     from mcp_tpu_torch import SOLVED, batch_statistics, solve_batches_streamed
     from mcp_tpu_torch.bench.harness import true_kkt_errors
-    from mcp_tpu_torch.kernels.cyclic_reduction import cr_thomas_solve
-    from mcp_tpu_torch.kernels.linesearch import linesearch_update
-    from mcp_tpu_torch.kernels.thomas import thomas_solve
 
     K, Bn = stack.shape[:2]
-    thomas_solve.launches = linesearch_update.launches = 0
-    cr_thomas_solve.launches = dict.fromkeys(cr_thomas_solve.launches, 0)
+    reset_counts()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1135,8 +1279,7 @@ def run_flagship(name, s, options, stack, x0, fact):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t1
     device_s = start.elapsed_time(end) / 1e3
-    launches = {"cr_thomas_solve": dict(cr_thomas_solve.launches),
-                "thomas": thomas_solve.launches, "linesearch": linesearch_update.launches}
+    launches = read_counts()
     tk = true_kkt_errors(s.mcp, res, stack)
     tk64 = certify64(s.mcp, res, stack)
     stats = batch_statistics(res)
@@ -1156,9 +1299,13 @@ def run_flagship(name, s, options, stack, x0, fact):
     check(bool(torch.isfinite(res.x[solved]).all()), f"{name}: non-finite solved x")
     check(not bool((solved & (tk > options.tol)).any()),
           f"{name}: a SOLVED lane has true KKT above tol")
-    check(launches["cr_thomas_solve"][fact] > 0, f"{name}: K3 {fact} never launched")
-    check(launches["linesearch"] > 0, f"{name}: K2 never launched")
-    check(thomas_solve.launches == 0, f"{name}: K1 launched on a K3 route")
+    check(launches[kernel][fact] > 0, f"{name}: {kernel} {fact} never launched")
+    others = sum(total(c) for k, c in launches.items() if k not in (kernel, "linesearch"))
+    check(others == 0 and total(launches[kernel]) == launches[kernel][fact],
+          f"{name}: another banded kernel or fact launched {launches}")
+    fused = options.fused_linesearch
+    if fused or (fused is None and options.linear_solver in ("tridiag_pallas", "tridiag_auto")):
+        check(launches["linesearch"] > 0, f"{name}: K2 never launched")
     return res, stats
 
 
@@ -1219,22 +1366,10 @@ def phase_n4_reference(n4, options, stack, res):
 def cr_counts(Bn, T, b, fact):
     """(bytes, flops) of one float32 K3 solve with per-lane bands, counted
     from the kernel's loops: inputs read once and x written once; per level
-    and odd block the augmented solve (elimination over every column, head
-    contraction and, for gjpr, the refinement; or Householder QR and back
-    substitution), the even-row products and the back substitution; the T=1
-    base per lane."""
+    and odd block the augmented solve (``aug_flops``), the even-row products
+    and the back substitution; the T=1 base per lane."""
     nbytes = 4 * Bn * (T * b * b + 2 * (T - 1) * b * b + 2 * T * b)
-
-    def solve(nrhs):
-        nc = b + nrhs + (b if fact == "gjpr" else 0)
-        if fact == "qr":
-            fac = sum(2 * (b - k) + 4 * (b - k) * (nc - k) for k in range(b))
-            return fac + nrhs * sum(2 * (b - 1 - k) + 1 for k in range(b))
-        elim = b * (b + (2 * b - 1) * nc)
-        contract = 2 * b * b * (nc - b)
-        refine = 2 * b * nrhs * (2 * b + 1) if fact == "gjpr" else 0
-        return elim + contract + refine
-
+    solve = lambda nrhs: aug_flops(b, nrhs, fact)
     flops, t = 0, T
     nrhs = 2 * b + 1
     while t > 1:
@@ -1300,14 +1435,6 @@ def phase_k3_timing(bands, errs, n4_launches, n10_launches):
 # -- K7a and the training step ---------------------------------------------
 
 
-def k7a_check(name, args):
-    """K7a against its plain version by K3's rule; returns the max absolute
-    difference."""
-    from mcp_tpu_torch.kernels.thomas_babe import babe_solve_plain, babe_thomas_solve
-
-    return block_check(f"K7a {name}", babe_thomas_solve, babe_solve_plain, args)
-
-
 @contextlib.contextmanager
 def ift_watch():
     """While active, the banded IFT's block-tridiagonal solve
@@ -1324,9 +1451,9 @@ def ift_watch():
     def solve(tier, *args):
         if rec["args"] is None:
             rec["args"] = args
-        before = babe_thomas_solve.launches
+        before = total(babe_thomas_solve.launches)
         out = real(tier, *args)
-        rec["launches"] += babe_thomas_solve.launches - before
+        rec["launches"] += total(babe_thomas_solve.launches) - before
         return out
 
     diff._band_solve = solve
@@ -1360,14 +1487,14 @@ def phase_k7a(n4, device):
     bands = err = None
     for dtype in (f32, f64):
         real = first_newton_bands(n4.mcp, n4.thetas.to(dtype), n4.x0.to(dtype))
-        e = k7a_check("N=4 first Newton step ({})".format("x".join(map(str, real[0].shape[:3]))),
-                      real)
+        e = fact_check("babe", "qr", "N=4 first Newton step ({})".format(
+            "x".join(map(str, real[0].shape[:3]))), real)
         if dtype == f32:
             bands, err = real, e
         for T, b in ((2, 40), (3, 40), (21, 20), (31, 40)):
-            k7a_check(f"random ({FLAG_B}x{T}x{b})",
-                      random_bands((FLAG_B, T, b), dtype, device, 50 + T))
-        k7a_check("lane-change first Newton step (64x20x20, shared bands)",
+            fact_check("babe", "qr", f"random ({FLAG_B}x{T}x{b})",
+                       random_bands((FLAG_B, T, b), dtype, device, 50 + T))
+        fact_check("babe", "qr", "lane-change first Newton step (64x20x20, shared bands)",
                   first_newton_bands(lane.parametric_game.mcp, lane_th.to(dtype)))
     # A zero block at the start of the left chain (system 1) and of the
     # right chain (system 2): inf/NaN in those systems only, as in the plain
@@ -1408,10 +1535,6 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
     from mcp_tpu_torch import SOLVED
     from mcp_tpu_torch.bench.flagships import train_step_setup
     from mcp_tpu_torch.bench.harness import true_kkt_errors
-    from mcp_tpu_torch.kernels.cyclic_reduction import cr_thomas_solve
-    from mcp_tpu_torch.kernels.linesearch import linesearch_update
-    from mcp_tpu_torch.kernels.thomas import thomas_solve
-    from mcp_tpu_torch.kernels.thomas_babe import babe_thomas_solve
 
     t0 = time.perf_counter()
     s = train_step_setup(batch, 4, FLAG_T, tier="tridiag_pallas", device=device)
@@ -1435,8 +1558,7 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
         s.sgd_update(s.model, grads, s.config.learning_rate)
     torch.cuda.synchronize()
 
-    thomas_solve.launches = linesearch_update.launches = babe_thomas_solve.launches = 0
-    cr_thomas_solve.launches = dict.fromkeys(cr_thomas_solve.launches, 0)
+    reset_counts()
     rows = []
     t_window = time.perf_counter()
     with ift_watch() as w:
@@ -1456,12 +1578,14 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
             })
             log(f"  train step {i}: " + json.dumps(rows[-1]))
     window = time.perf_counter() - t_window
+    counts = read_counts()
     launches = {
-        "babe_forward": babe_thomas_solve.launches - w["launches"],
+        "babe_forward": counts["babe"]["qr"] - w["launches"],
         "babe_backward": w["launches"],
-        "linesearch": linesearch_update.launches,
-        "thomas": thomas_solve.launches,
-        "cr_thomas_solve": dict(cr_thomas_solve.launches),
+        "babe_other_facts": total(counts["babe"]) - counts["babe"]["qr"],
+        "linesearch": counts["linesearch"],
+        "thomas": total(counts["thomas"]),
+        "cr_thomas_solve": counts["cr"],
     }
     secs = sorted(r["seconds"] for r in rows)
     stats = {"steps": steps, "batch": batch, "window_s": window,
@@ -1477,8 +1601,9 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
     check(launches["babe_forward"] > 0 and launches["babe_backward"] > 0,
           f"training: K7a not launched in both passes {launches}")
     check(launches["linesearch"] > 0, "training: K2 never launched")
-    check(launches["thomas"] == 0 and not any(launches["cr_thomas_solve"].values()),
-          f"training: K1 or K3 launched on the K7a route {launches}")
+    check(launches["thomas"] == 0 and not any(launches["cr_thomas_solve"].values())
+          and launches["babe_other_facts"] == 0,
+          f"training: K1, K3 or another K7a fact launched on the K7a qr route {launches}")
     return s, warm["args"], launches, stats
 
 
@@ -1563,21 +1688,16 @@ def phase_train_gradients(device):
     return w["args"], errs
 
 
-def babe_counts(Bn, T, b, shared_bands, itemsize=4):
+def babe_counts(Bn, T, b, shared_bands, itemsize=4, fact="qr"):
     """(bytes, flops) of the two-way sweep: inputs read once and x written
-    once (as ``thomas_counts``); T sweep steps, each a Householder QR solve
-    against [U | r] (2b+1 columns), T−2 of them after an L·[C | d] product;
-    the junction (C·[E | e], a QR solve with one right side, x_ml); T−2
+    once (as ``thomas_counts``); T sweep steps, each an in-block solve
+    (``aug_flops``) against [U | r], T−2 of them after an L·[C | d] product;
+    the junction (C·[E | e], a solve with one right side, x_ml); T−2
     back-substitution products."""
     nbytes, _ = thomas_counts(Bn, T, b, shared_bands, itemsize)
-
-    def qr_solve(nc):
-        fac = sum(4 * (b - k) * (nc - k) for k in range(b))
-        return fac + sum(2 * (b - 1 - k) * (nc - b) + (nc - b) for k in range(b))
-
-    step = qr_solve(2 * b + 1)
+    step = aug_flops(b, b + 1, fact)
     elim = 2 * b * b * (b + 1)
-    junction = 2 * b * b * (b + 1) + qr_solve(b + 1) + 2 * b * b
+    junction = 2 * b * b * (b + 1) + aug_flops(b, 1, fact) + 2 * b * b
     flops = T * step + (T - 2) * elim + junction + (T - 2) * 2 * b * b
     return nbytes, Bn * flops
 
@@ -1637,6 +1757,197 @@ def phase_train_profile(s):
     log("  profile (one train step): " + json.dumps(out))
     return out
 
+# -- the Gauss–Jordan facts of K1′, K7a and K3 (the fact tiers) ------------
+
+
+def phase_fact_kernels(n4, n10, device):
+    """Every Gauss–Jordan fact of K1′, K7a and K3 against its plain version
+    on the card, in float32 and float64: the lane-change first-Newton bands
+    (K1′ and K3), the N=4 first-Newton bands (K7a and K3), the N=10 bands
+    (K3, float32; float64 at b=100 is refused), random bands (K1′ at
+    (256, 10, 20) and (3, 7, 5); K7a at T = 21 and 29, where the right chain
+    of the JAX package starts on its identity pad). Returns ({shape: float32
+    bands}, {(kernel, fact): max abs error on the float32 bands of the
+    fact's path})."""
+    import torch
+
+    from mcp_tpu_torch.kernels import cyclic_reduction as C
+    from mcp_tpu_torch.kernels.solve_aug import FACTS
+
+    f32, f64 = torch.float32, torch.float64
+    check_fact = lambda *a: fact_check(*a, tol=FACT_TOL)
+    shape = lambda a: "x".join(map(str, a[0].shape[:3]))
+    bands, errs = {}, {}
+    for dtype in (f32, f64):
+        lane = lane_change_bands(dtype, device)
+        n4b = first_newton_bands(n4.mcp, n4.thetas.to(dtype), n4.x0.to(dtype))
+        if dtype == f32:
+            bands["lane"], bands["N=4"] = lane, n4b
+        for fact in ("gj", "gjp", "gjpr"):
+            e = check_fact("thomas", fact, f"lane-change first Newton step ({shape(lane)})", lane)
+            if dtype == f32:
+                errs["thomas", fact] = e
+            for sh, seed in (((B, 10, 20), 61), ((3, 7, 5), 62)):
+                check_fact("thomas", fact, f"random ({'x'.join(map(str, sh))})",
+                           random_bands(sh, dtype, device, seed))
+            e = check_fact("babe", fact, f"N=4 first Newton step ({shape(n4b)})", n4b)
+            if dtype == f32:
+                errs["babe", fact] = e
+            for T in (21, 29):
+                check_fact("babe", fact, f"random ({FLAG_B}x{T}x40)",
+                           random_bands((FLAG_B, T, 40), dtype, device, 60 + T))
+        for fact in FACTS:
+            if fact in ("qr", "gjp", "gjpr"):
+                continue  # phase 13
+            e = check_fact("cr", fact, f"lane-change first Newton step ({shape(lane)})", lane)
+            if dtype == f32:
+                errs["cr", fact] = e
+            e = check_fact("cr", fact, f"N=4 first Newton step ({shape(n4b)})", n4b)
+            if dtype == f32 and fact == "gjbpr":
+                errs["cr", "gjbpr", "N=4"] = e
+    n10b = bands["N=10"] = first_newton_bands(n10.mcp, n10.thetas, n10.x0)
+    for fact in FACTS:
+        if fact not in ("qr", "gjp", "gjpr"):
+            check_fact("cr", fact, f"N=10 first Newton step ({shape(n10b)})", n10b)
+    try:
+        C.cr_thomas_solve(*(a.double() for a in n10b), fact="gjbpr")
+    except ValueError as exc:
+        log(f"  K3 gjbpr b=100 float64 refused as expected: {exc}")
+    else:
+        raise PhaseFailed("K3 gjbpr: b=100 float64 was not refused")
+    return bands, errs
+
+
+def phase_path_b(device, seed=2030):
+    """Path B: one lane-change batch of B fresh θ on each tier of PATH_B
+    (the headline options with that tier), every launch count set to 0 just
+    before each batch and read just after. Returns {(kernel, fact):
+    launches}."""
+    import torch
+
+    from mcp_tpu_torch import SOLVED, SolverOptions, auto_tightening_rate, solve_batch
+    from mcp_tpu_torch.bench import lane_change as lc
+    from mcp_tpu_torch.bench.harness import true_kkt_errors
+
+    bench = lc.generate_test_problem(horizon=10, device=device)
+    mcp = bench.parametric_game.mcp
+    gen = torch.Generator().manual_seed(seed)
+    launches, failures = {}, []
+    for tier, kernel, fact, floor in PATH_B:
+        th = lc.generate_parameter_batch(gen, B, bench, dtype=torch.float32, device=device)
+        opts = SolverOptions(**{**HEADLINE, "linear_solver": tier},
+                             tightening_rate=auto_tightening_rate(mcp))
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve_batch(mcp, th, options=opts)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        tk = true_kkt_errors(mcp, res, th)
+        solved = res.status == SOLVED
+        success = float(solved.double().mean())
+        certified = int((solved & (tk <= opts.tol)).sum())
+        launches[kernel, fact] = counts[kernel][fact]
+        log(f"  path B {tier}: success {success}, certified {certified}/{B}, median "
+            f"iterations {float(res.outer_iters.double().median())}, {dt:.2f} s, "
+            f"launches {json.dumps(counts)}")
+        others = sum(total(c) for k, c in counts.items() if k not in (kernel, "linesearch"))
+        for ok, what in (
+            (counts[kernel][fact] > 0, f"{kernel} {fact} never launched"),
+            (others == 0 and total(counts[kernel]) == counts[kernel][fact],
+             f"another banded kernel or fact launched {counts}"),
+            (not bool((solved & ~(tk <= opts.tol)).any()), "a SOLVED lane is not certified"),
+            (floor is None or success >= floor, f"success {success} < {floor}"),
+        ):
+            if not ok:
+                failures.append(f"path B {tier}: {what}")
+    check(not failures, "; ".join(failures))
+    return launches
+
+
+def phase_path_c(n4, seed=2031):
+    """Path C: one N=4 flagship batch (phase 14's options and θ noise) on
+    each tier of PATH_C through ``run_flagship``. Returns {(kernel, fact,
+    "N=4"): launches}."""
+    import torch
+
+    from mcp_tpu_torch import SolverOptions, auto_tightening_rate
+
+    gen = torch.Generator().manual_seed(seed)
+    dev, dt = n4.thetas.device, n4.thetas.dtype
+    launches, failures = {}, []
+    for tier, kernel, fact, floor in PATH_C:
+        options = SolverOptions(**{**N4_OPTIONS, "linear_solver": tier},
+                                tightening_rate=auto_tightening_rate(n4.mcp))
+        noise = 1e-4 * torch.randn(n4.thetas.shape, generator=gen, dtype=torch.float64)
+        stack = (n4.thetas + noise.to(device=dev, dtype=dt))[None]
+        try:
+            _, stats = run_flagship(f"path C {tier}", n4, options, stack, n4.x0, fact, kernel)
+        except PhaseFailed as exc:
+            failures.append(str(exc))
+            continue
+        launches[kernel, fact, "N=4"] = stats["launches"][kernel][fact]
+        if floor is not None and stats["success_rate"] < floor:
+            failures.append(f"path C {tier}: success {stats['success_rate']} < {floor}")
+    check(not failures, "; ".join(failures))
+    return launches
+
+
+def phase_fact_timing(bands, errs, launches, device):
+    """Each (kernel, fact) of paths A–C at its path's shape beside its bound,
+    its plain version and a dense torch.linalg.solve of the same system (one
+    per shape: the same function whatever the fact); then the N=10 A/B of K3
+    gjpr, gjbpr and gjbprl on the N=10 bands, in turns."""
+    import torch
+
+    library = {}
+    for key in ("lane", "N=4"):
+        A, r = dense_block_system(*bands[key])
+        library[key] = cuda_ms(lambda: torch.linalg.solve(A, r), 5)
+    rows = [("thomas", f, "lane", (f,)) for f in ("gj", "gjp", "gjpr")]
+    rows += [("babe", f, "N=4", (f,)) for f in ("gj", "gjp", "gjpr")]
+    rows += [("cr", f, "lane", (f,)) for f in ("gj", "gjb", "gjbr", "gjbr2", "gjbpr", "gjbpr2",
+                                                 "gjbprl")]
+    rows += [("cr", "gjbpr", "N=4", ("gjbpr", "N=4"))]
+    kernels = []
+    for kernel, fact, key, ekey in rows:
+        args = bands[key]
+        Bn, T, b, _ = args[0].shape
+        shared = args[1].stride(0) == 0
+        if kernel == "thomas":
+            nbytes, flops = thomas_counts(Bn, T, b, shared, fact=fact)
+        elif kernel == "babe":
+            nbytes, flops = babe_counts(Bn, T, b, shared, fact=fact)
+        else:
+            nbytes, flops = cr_counts(Bn, T, b, fact)
+        b_ms, b_by = bound(nbytes, flops)
+        name, src, replaces = FACT_SOURCE[kernel]
+        lau = launches[(kernel, fact, key) if (kernel, fact, key) in launches else (kernel, fact)]
+        entry = {
+            "name": f"{name}[{fact}]" + (" N=4" if kernel == "cr" and key == "N=4" else ""),
+            "route": "cuda", "source": f"mcp_tpu_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": lau, "max_abs_err": errs[(kernel, *ekey)],
+            "ms": cuda_ms(lambda: fact_solver(kernel, fact)(*args), 20),
+            "plain_ms": cuda_ms(lambda: fact_solver(kernel, fact, plain=True)(*args), 2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[key],
+        }
+        kernels.append(entry)
+        log(f"  {entry['name']} ({Bn},{T},{b}): {entry['ms']:.4f} ms (plain "
+            f"{entry['plain_ms']:.3f} ms, bound {b_ms:.5f} ms by {b_by} [{flops / 1e9:.3f} "
+            f"GFLOP, {nbytes / 1e6:.2f} MB], dense solve {entry['library_ms']:.3f} ms); "
+            f"launches {lau} in its path's window")
+    args = bands["N=10"]
+    Bn, T, b, _ = args[0].shape
+    ab = {f: [] for f in ("gjpr", "gjbpr", "gjbprl")}
+    for fact in ("gjpr", "gjbpr", "gjbprl", "gjbprl", "gjbpr", "gjpr"):
+        ab[fact].append(cuda_ms(lambda: fact_solver("cr", fact)(*args), 10))
+    for fact, ms in ab.items():
+        nbytes, flops = cr_counts(Bn, T, b, fact)
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"  N=10 A/B ({Bn},{T},{b}) K3 {fact}: {ms[0]:.4f} / {ms[1]:.4f} ms (mean "
+            f"{sum(ms) / 2:.4f}; bound {b_ms:.5f} ms by {b_by}, {flops / 1e9:.3f} GFLOP)")
+    return kernels
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1669,11 +1980,8 @@ def main() -> int:
                 log(f"  [{name}] {line.strip()}")
 
     device = "cuda"
-    from mcp_tpu_torch.bench import lane_change as lc
-
-    mcp = lc.generate_test_problem(horizon=10, device=device).parametric_game.mcp
     phase("2: K1 (thomas) kernel vs plain")
-    real_bands, k1_err = phase_k1(mcp, device)
+    real_bands, k1_err = phase_k1(device)
     phase("3: K2 (linesearch) kernel vs plain")
     k2_err = phase_k2(device)
     phase("4: main path")
@@ -1707,9 +2015,8 @@ def main() -> int:
     phase("16: N=4 reference check")
     phase_n4_reference(n4, n4_options, n4_stack, n4_res)
     phase("17: K3 timing")
-    kernels += phase_k3_timing(k3_bands, k3_errs,
-                               n4_stats["launches"]["cr_thomas_solve"]["gjp"],
-                               n10_stats["launches"]["cr_thomas_solve"]["gjpr"])
+    kernels += phase_k3_timing(k3_bands, k3_errs, n4_stats["launches"]["cr"]["gjp"],
+                               n10_stats["launches"]["cr"]["gjpr"])
     phase("18: profile of one N=4 flagship batch")
     phase_profile(n4.mcp, n4_options, n4_stack[0], x0=n4.x0)
     phase(f"19: profile of the N=10 flagship batch's first {N10_PROFILE_OUTER} outer "
@@ -1720,15 +2027,28 @@ def main() -> int:
     k7a_bands, k7a_err = phase_k7a(n4, device)
     phase(f"21: training path (N=4, horizon 30, batch {TRAIN_B}, tridiag_pallas)")
     train, ift_bands, train_launches, _ = phase_train_path(device)
-    k7a_check("IFT transposed bands at a training-step solution (8x30x40)", ift_bands)
+    fact_check("babe", "qr", "IFT transposed bands at a training-step solution (8x30x40)",
+               ift_bands)
     phase(f"22: gradient checks ({GRAD_B} lanes)")
     ift64_bands, _ = phase_train_gradients(device)
-    k7a_check("IFT transposed bands at a float64 training-step solution (2x30x40)",
+    fact_check("babe", "qr", "IFT transposed bands at a float64 training-step solution "
+               "(2x30x40)",
               ift64_bands)
     phase("23: K7a timing")
     kernels.append(phase_k7a_timing(k7a_bands, k7a_err, train_launches))
     phase("24: profile of one train step")
     phase_train_profile(train)
+    phase("25: the Gauss–Jordan facts of K1', K7a and K3 vs plain")
+    fact_bands, fact_errs = phase_fact_kernels(n4, n10, device)
+    phase(f"26: path A, lane-change headline on tridiag_pallas_gjpr ({B * K_BATCHES} instances)")
+    _, _, _, _, a_launches = phase_main_path(device, tier="tridiag_pallas_gjpr", fact="gjpr",
+                                             name="path A", fused_linesearch=True)
+    phase(f"27: path B, one lane-change batch of {B} on each fact tier")
+    fact_launches = {("thomas", "gjpr"): a_launches["thomas"]["gjpr"], **phase_path_b(device)}
+    phase(f"28: path C, one N=4 flagship batch of {FLAG_B} on each fact tier")
+    fact_launches.update(phase_path_c(n4))
+    phase("29: fact timing and the N=10 A/B")
+    kernels += phase_fact_timing(fact_bands, fact_errs, fact_launches, device)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -2,8 +2,9 @@
 with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/mcp_tpu_torch/<name>-<hash>.so``
-under the repository root, named after a hash of the source and the flags,
-so an edit rebuilds. Nothing here runs at import: the first CUDA tensor that
+under the repository root, named after a hash of the source, of every header
+it includes from ``csrc/`` (``#include "..."``, followed through headers) and
+of the flags, so an edit of any of them rebuilds. Nothing here runs at import: the first CUDA tensor that
 reaches a kernel wrapper builds its library (``build`` compiles several
 sources in parallel, one nvcc each). The sources have a plain C interface
 and include no PyTorch header, so each compiles in seconds.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -44,10 +46,24 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> dict[Path, bytes]:
+    """``path`` and every file it includes with quotes, in include order."""
+    if path not in seen:
+        seen[path] = text = path.read_bytes()
+        for inc in _INCLUDE.findall(text):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path, text in _sources(CSRC / f"{name}.cu", {}).items():
+        h.update(path.name.encode() + b"\0" + text)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, str]:

@@ -1,13 +1,16 @@
 // K3: batched block-tridiagonal solve by block cyclic reduction, for sm_90a,
-// with three in-block factorizations: Householder QR ("qr"), Gauss-Jordan
-// with implicit partial pivoting ("gjp") and gjp plus one explicit-inverse
-// refinement step ("gjpr").
+// with every in-block factorization ("fact") of the JAX package: Householder
+// QR ("qr"), pivot-free Gauss-Jordan ("gj"), Gauss-Jordan with implicit
+// partial pivoting ("gjp"), gjp plus one explicit-inverse refinement step
+// ("gjpr"), and the blocked eliminations in panels of 32 columns, pivot-free
+// ("gjb", "gjbr", "gjbr2": 0, 1, 2 refinement steps) and with gjp's pivot
+// sequence ("gjbp", "gjbpr", "gjbpr2", and "gjbprl", which is gjbpr's
+// algebra). The facts themselves are in solve_aug.cuh.
 //
 // Replaces mcp_tpu/kernels/thomas_pallas.py::_thomas_kernel_cr_packed
 // (:1154) and ::_thomas_kernel_cr_split (:1167), i.e. _cr_solve (:1055) with
-// the facts _qr_solve_aug (:33), _gjp_solve_aug (:110) and _gjpr_solve_aug
-// (:396). One source covers both TPU kernels: their split is a lane-packing
-// rule (3b+1 <= 128) of the TPU.
+// _solve_aug (:431). One source covers both TPU kernels: their split is a
+// lane-packing rule (3b+1 <= 128) of the TPU.
 //
 // What it computes (cyclic_reduction.cr_solve_plain is the same algebra in
 // PyTorch): an odd T is padded with a decoupled identity block; each level
@@ -17,12 +20,7 @@
 //   L'_k = -(L_e D_{o-2}^-1 L_{o-2}),  U'_k = -(U_e D_o^-1 U_o),
 // recurses on the half-size system, solves the T=1 base [D | r] and
 // back-substitutes x_o = (D_o^-1 r_o - D_o^-1 L_o x_e) - D_o^-1 U_o x_{e+2}.
-// The Gauss-Jordan elimination rounds each product and difference on its
-// own (__fmul_rn / __fsub_rn, no FMA contraction) in the plain version's
-// order, pivot choice included (largest |entry| among unused rows, first
-// row on ties, used rows scored -1, no pivot at all when a score is NaN);
-// the head contraction, the refinement products and the level products sum
-// in another order than the plain version's matmuls.
+// The level products sum in another order than the plain version's matmuls.
 //
 // Bound on this card: at the N=4 flagship (B=8, T=30, b=40, gjp, float32)
 // the solve reads the bands and the right side once (4.6 MB, 1.4 us at
@@ -30,49 +28,38 @@
 // elimination included): 4.1 us at the 67 TFLOP/s float32 rate, bound by
 // operations; at the N=10 flagship (b=100, gjpr) 7.1 GFLOP, 106 us. In
 // practice neither binds: every elimination step is a serial link with
-// three block-wide barriers (b steps per system and level), and the levels
-// run one after another with fewer systems each (120, 64, 32, 16, 8 blocks
-// at T=30, B=8 against 132 SMs).
+// two or three block-wide barriers (b steps per system and level), and the
+// levels run one after another with fewer systems each (120, 64, 32, 16, 8
+// blocks at T=30, B=8 against 132 SMs).
 //
 // Design (simple and correct first): host-side recursion over the static
 // level shapes; per level one launch of the odd-block solve, one thread
 // block per (odd block, lane), whose [D | L | U | r (| I)] matrix lives in
-// shared memory (b x (3b+1), plus b identity columns for gjpr: 160.4 KB at
-// b=100 in float32, above 48 KB by dynamic shared memory after
-// cudaFuncSetAttribute). The same block then forms the even-row products
-// that need its own solution: D - U_e D_o^-1 L_o, r - U_e D_o^-1 r_o and
-// U'_k for its pair, and L_e D_o^-1 U_o, L_e D_o^-1 r_o and L'_{k+1} for
-// the next pair (written to separate arrays that the next level subtracts
-// on load, in the plain version's order). Then one launch for the T=1
-// base, and one back-substitution launch per level. The head contraction
-// and the gjpr refinement run in place, a b x chunk column slab at a time,
-// so gjpr at b=100 fits. The wrapper refuses shapes whose matrix does not
-// fit a block (gjp/gjpr/qr at b=100 in float64).
+// shared memory (b x (3b+1), plus b identity columns with refinement:
+// 160.4 KB at b=100 in float32, plus the 32-column panel W of the blocked
+// facts; above 48 KB by dynamic shared memory after cudaFuncSetAttribute).
+// The same block then forms the even-row products that need its own
+// solution: D - U_e D_o^-1 L_o, r - U_e D_o^-1 r_o and U'_k for its pair,
+// and L_e D_o^-1 U_o, L_e D_o^-1 r_o and L'_{k+1} for the next pair (written
+// to separate arrays that the next level subtracts on load, in the plain
+// version's order). Then one launch for the T=1 base, and one
+// back-substitution launch per level. The contractions and the refinement
+// run in place, a b x chunk column slab at a time, so every fact fits at
+// b=100 in float32. The wrapper refuses shapes whose matrix does not fit a
+// block (every fact at b=100 in float64).
 
 #include <cuda_runtime.h>
 
+#include "solve_aug.cuh"
+
 namespace {
+
+using namespace solve_aug;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxChunk = 64;
 constexpr size_t kSmemLimit = 232448;
-enum Fact { kQR = 0, kGJP = 1, kGJPR = 2 };
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float dsqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double dsqrt(double v) { return sqrt(v); }
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // One level's bands in padded form: L(t) couples t to t-1 (zero at t = 0),
 // U(t) couples t to t+1 (zero at the last block), blocks t >= nT are the
@@ -143,227 +130,29 @@ struct BaseBlock {
 };
 
 template <typename T>
-struct Smem {
-  T* M;        // b x nc
-  T* va;       // b: used flags (gj) or the Householder vector (qr)
-  T* vb;       // b: multipliers (gj)
-  T* vc;       // nc: pivot row (gj) or u^T M (qr)
-  T* sc;       // 4 scalars
-  T* scratch;  // b x chunk
-};
-
-template <typename T>
-__device__ Smem<T> carve(int b, int nc) {
+__device__ Aug<T> carve_smem(int b, int ld, int fam, int chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T> s;
-  s.M = reinterpret_cast<T*>(smem_raw);
-  s.va = s.M + (size_t)b * nc;
-  s.vb = s.va + b;
-  s.vc = s.vb + b;
-  s.sc = s.vc + nc;
-  s.scratch = s.sc + 4;
-  return s;
-}
-
-// Gauss-Jordan with implicit partial pivoting on every column of M (b x nc).
-template <typename T>
-__device__ void gjp_eliminate(const Smem<T>& s, int b, int nc) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __shared__ int s_first;
-  T* M = s.M;
-  T* used = s.va;
-  T* f = s.vb;
-  T* prow = s.vc;
-  const T eps = T(1e-30);
-  for (int i = tid; i < b; i += kThreads) used[i] = T(0);
-  __syncthreads();
-  for (int k = 0; k < b; ++k) {
-    if (warp == 0) {
-      T best = T(0);
-      int bi = b;
-      int seen = 0, nan = 0;
-      for (int i = lane; i < b; i += 32) {
-        const T c = M[i * nc + k];
-        const T u = used[i];
-        const T sc = sub_rn(mul_rn(c >= T(0) ? c : -c, sub_rn(T(1), u)), u);
-        if (sc != sc) {
-          nan = 1;
-        } else if (!seen || sc > best) {  // rows ascend: ties keep the first
-          best = sc;
-          bi = i;
-          seen = 1;
-        }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const T ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        const int os = __shfl_xor_sync(0xffffffffu, seen, off);
-        if (os && (!seen || ob > best || (ob == best && oi < bi))) {
-          best = ob;
-          bi = oi;
-          seen = 1;
-        }
-      }
-      nan = __any_sync(0xffffffffu, nan);
-      if (lane == 0) {
-        const int p = (nan || !seen) ? b : bi;
-        const T piv = p < b ? M[p * nc + k] : T(0);
-        const T ap = piv >= T(0) ? piv : -piv;
-        s.sc[0] = T(1) / (ap > eps ? piv : eps);
-        s_first = p;
-      }
-    }
-    __syncthreads();
-    const int p = s_first;
-    const T inv = s.sc[0];
-    for (int j = tid; j < nc; j += kThreads) prow[j] = p < b ? M[p * nc + j] : T(0);
-    for (int i = tid; i < b; i += kThreads) f[i] = mul_rn(M[i * nc + k], inv);
-    __syncthreads();
-    for (int i = warp; i < b; i += kWarps) {
-      T* row = M + i * nc;
-      if (i == p) {
-        for (int j = lane; j < nc; j += 32) row[j] = mul_rn(prow[j], inv);
-      } else {
-        const T fi = f[i];
-        for (int j = lane; j < nc; j += 32) row[j] = sub_rn(row[j], mul_rn(fi, prow[j]));
-      }
-    }
-    if (tid == 0 && p < b) used[p] = T(1);
-    __syncthreads();
-  }
-}
-
-// M[:, b:] <- head^T M[:, b:] in place (head = M[:, :b]), `chunk` columns at
-// a time through the scratch slab.
-template <typename T>
-__device__ void contract_head(const Smem<T>& s, int b, int nc, int chunk) {
-  const int tid = threadIdx.x;
-  T* M = s.M;
-  for (int c0 = b; c0 < nc; c0 += chunk) {
-    const int w = min(chunk, nc - c0);
-    for (int e = tid; e < b * w; e += kThreads) {
-      const int k = e / w, c = e - k * w;
-      T acc = T(0);
-      for (int j = 0; j < b; ++j) acc += M[j * nc + k] * M[j * nc + c0 + c];
-      s.scratch[e] = acc;
-    }
-    __syncthreads();
-    for (int e = tid; e < b * w; e += kThreads) {
-      const int k = e / w, c = e - k * w;
-      M[k * nc + c0 + c] = s.scratch[e];
-    }
-    __syncthreads();
-  }
-}
-
-// Householder QR without pivoting of M[:, :b], applied to every column from
-// k on, then back substitution in place: M[:, b:] <- X.
-template <typename T>
-__device__ void qr_solve(const Smem<T>& s, int b, int nc) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  T* M = s.M;
-  T* u = s.va;
-  T* w = s.vc;
-  const T eps = T(1e-30);
-  for (int k = 0; k < b; ++k) {
-    if (warp == 0) {
-      T ss = T(0);
-      for (int i = k + lane; i < b; i += 32) {
-        const T v = M[i * nc + k];
-        ss += v * v;
-      }
-      ss = warp_sum(ss);
-      if (lane == 0) {
-        const T vk = M[k * nc + k];
-        const T norm = dsqrt(ss + eps);
-        const T sgn = vk >= T(0) ? T(1) : T(-1);
-        const T avk = vk >= T(0) ? vk : -vk;
-        u[k] = vk + sgn * norm;
-        s.sc[0] = T(1) / (norm * (norm + avk) + eps);
-      }
-      for (int i = k + 1 + lane; i < b; i += 32) u[i] = M[i * nc + k];
-    }
-    __syncthreads();
-    for (int j = k + tid; j < nc; j += kThreads) {
-      T acc = T(0);
-      for (int i = k; i < b; ++i) acc += u[i] * M[i * nc + j];
-      w[j] = acc;
-    }
-    __syncthreads();
-    const T beta = s.sc[0];
-    for (int i = k + warp; i < b; i += kWarps) {
-      const T bu = beta * u[i];
-      for (int j = k + lane; j < nc; j += 32) M[i * nc + j] -= bu * w[j];
-    }
-    __syncthreads();
-  }
-  for (int c = b + tid; c < nc; c += kThreads) {
-    for (int k = b - 1; k >= 0; --k) {
-      T acc = M[k * nc + c];
-      for (int j = k + 1; j < b; ++j) acc -= M[k * nc + j] * M[j * nc + c];
-      M[k * nc + c] = acc / M[k * nc + k];
-    }
-  }
-  __syncthreads();
-}
-
-// Load the augmented matrix [orig | I (gjpr)] and solve it in place: on
-// return M[:, b : b + nrhs] holds X with orig[:, :b] X = orig[:, b:].
-template <typename T, int FACT, typename Orig>
-__device__ void solve_aug(const Smem<T>& s, int b, int nrhs, int chunk, const Orig& orig) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nc = b + nrhs + (FACT == kGJPR ? b : 0);
-  T* M = s.M;
-  for (int i = warp; i < b; i += kWarps)
-    for (int j = lane; j < nc; j += 32)
-      M[i * nc + j] = j < b + nrhs ? orig(i, j) : (j - b - nrhs == i ? T(1) : T(0));
-  __syncthreads();
-  if (FACT == kQR) {
-    qr_solve(s, b, nc);
-    return;
-  }
-  gjp_eliminate(s, b, nc);
-  contract_head(s, b, nc, chunk);
-  if (FACT != kGJPR) return;
-  // X <- X + A^-1 (N - A X): A into the head (free after the contraction),
-  // A^-1 at columns b + nrhs.., then a chunk of X columns at a time.
-  for (int i = warp; i < b; i += kWarps)
-    for (int j = lane; j < b; j += 32) M[i * nc + j] = orig(i, j);
-  __syncthreads();
-  for (int c0 = 0; c0 < nrhs; c0 += chunk) {
-    const int w = min(chunk, nrhs - c0);
-    for (int e = tid; e < b * w; e += kThreads) {
-      const int i = e / w, c = e - i * w;
-      T acc = T(0);
-      for (int m = 0; m < b; ++m) acc += M[i * nc + m] * M[m * nc + b + c0 + c];
-      s.scratch[e] = orig(i, b + c0 + c) - acc;
-    }
-    __syncthreads();
-    for (int e = tid; e < b * w; e += kThreads) {
-      const int i = e / w, c = e - i * w;
-      T acc = T(0);
-      for (int m = 0; m < b; ++m) acc += M[i * nc + b + nrhs + m] * s.scratch[m * w + c];
-      M[i * nc + b + c0 + c] = add_rn(M[i * nc + b + c0 + c], acc);
-    }
-    __syncthreads();
-  }
+  return carve(reinterpret_cast<T*>(smem_raw), b, ld, fam, chunk);
 }
 
 // One level: odd block o = 2k+1 of lane z, then its even-row products.
-template <typename T, int FACT>
+template <typename T, int FAM>
 __global__ void __launch_bounds__(kThreads) cr_reduce_kernel(
-    Level<T> in, int b, int H, int chunk, T* __restrict__ sol, T* __restrict__ Dp,
+    Level<T> in, int b, int H, int refine, int chunk, T* __restrict__ sol, T* __restrict__ Dp,
     T* __restrict__ Dq, T* __restrict__ rp, T* __restrict__ rq, T* __restrict__ Ln,
     T* __restrict__ Un) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k = blockIdx.x;
   const long long z = blockIdx.y;
   const int nrhs = 2 * b + 1;
-  const int nc = b + nrhs + (FACT == kGJPR ? b : 0);
-  const Smem<T> s = carve<T>(b, nc);
+  const int nc = aug_ld(b, nrhs, refine);
+  const Aug<T> s = carve_smem<T>(b, nc, FAM, chunk);
+  const BlockGroup g{tid, kThreads};
   T* M = s.M;
   const int o = 2 * k + 1, e = 2 * k;
-  solve_aug<T, FACT>(s, b, nrhs, chunk, OddBlock<T>{in, z, o, b});
+  const OddBlock<T> orig{in, z, o, b};
+  load(g, s, b, nrhs, refine, orig);
+  solve_loaded<FAM>(g, s, b, nrhs, refine, orig);
 
   // [D_o^-1 L_o | D_o^-1 U_o | D_o^-1 r_o] for the back substitution.
   const long long bb = (long long)b * b;
@@ -419,13 +208,16 @@ __global__ void __launch_bounds__(kThreads) cr_reduce_kernel(
 }
 
 // The T=1 base: x = D^-1 r per lane.
-template <typename T, int FACT>
-__global__ void __launch_bounds__(kThreads) cr_base_kernel(Level<T> in, int b, int chunk,
-                                                           T* __restrict__ x) {
-  const int nc = b + 1 + (FACT == kGJPR ? b : 0);
+template <typename T, int FAM>
+__global__ void __launch_bounds__(kThreads) cr_base_kernel(Level<T> in, int b, int refine,
+                                                           int chunk, T* __restrict__ x) {
+  const int nc = aug_ld(b, 1, refine);
   const long long z = blockIdx.y;
-  const Smem<T> s = carve<T>(b, nc);
-  solve_aug<T, FACT>(s, b, 1, chunk, BaseBlock<T>{in, z, b});
+  const Aug<T> s = carve_smem<T>(b, nc, FAM, chunk);
+  const BlockGroup g{(int)threadIdx.x, kThreads};
+  const BaseBlock<T> orig{in, z, b};
+  load(g, s, b, 1, refine, orig);
+  solve_loaded<FAM>(g, s, b, 1, refine, orig);
   for (int i = threadIdx.x; i < b; i += kThreads) x[z * b + i] = s.M[i * nc + b];
 }
 
@@ -472,13 +264,10 @@ Plan make_plan(int T) {
   return p;
 }
 
-size_t smem_bytes(int b, int nc, size_t sz, int chunk) {
-  // cyclic_reduction.check_fits refuses what does not fit at chunk = 1.
-  return sz * ((size_t)b * nc + 2 * b + nc + 4 + (size_t)b * chunk);
-}
-
-int pick_chunk(int b, int nc, size_t sz) {
-  const size_t base = smem_bytes(b, nc, sz, 0);
+// The widest column slab (<= kMaxChunk) whose working set fits a block; 0 when
+// not even one column does (cyclic_reduction.check_fits refuses those).
+int pick_chunk(int b, int nc, int fam, size_t sz) {
+  const size_t base = aug_bytes(b, nc, fam, 0, sz);
   if (base + sz * b > kSmemLimit) return 0;
   const size_t avail = (kSmemLimit - base) / (sz * b);
   return (int)(avail < (size_t)kMaxChunk ? avail : kMaxChunk);
@@ -505,20 +294,21 @@ long long workspace_elems(int B, int T, int b) {
   return n + (long long)B * b;
 }
 
-template <typename T, int FACT>
+template <typename T, int FAM>
 int solve(const T* diag, const T* lower, const T* upper, const T* rhs, T* work, T* x, int B,
-          int T_, int b, long long lower_bs, long long upper_bs, cudaStream_t stream) {
+          int T_, int b, int refine, long long lower_bs, long long upper_bs,
+          cudaStream_t stream) {
   const Plan p = make_plan(T_);
   const size_t sz = sizeof(T);
-  const int nc_red = 3 * b + 1 + (FACT == kGJPR ? b : 0);
-  const int nc_base = b + 1 + (FACT == kGJPR ? b : 0);
-  const int chunk = pick_chunk(b, nc_red, sz);
+  const int nc_red = aug_ld(b, 2 * b + 1, refine);
+  const int nc_base = aug_ld(b, 1, refine);
+  const int chunk = pick_chunk(b, nc_red, FAM, sz);
   if (chunk == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem_red = smem_bytes(b, nc_red, sz, chunk);
-  const size_t smem_base = smem_bytes(b, nc_base, sz, chunk);
-  int err = allow_smem(cr_reduce_kernel<T, FACT>, smem_red);
+  const size_t smem_red = aug_bytes(b, nc_red, FAM, chunk, sz);
+  const size_t smem_base = aug_bytes(b, nc_base, FAM, chunk, sz);
+  int err = allow_smem(cr_reduce_kernel<T, FAM>, smem_red);
   if (err) return err;
-  err = allow_smem(cr_base_kernel<T, FACT>, smem_base);
+  err = allow_smem(cr_base_kernel<T, FAM>, smem_base);
   if (err) return err;
 
   // Carve the workspace.
@@ -560,15 +350,15 @@ int solve(const T* diag, const T* lower, const T* upper, const T* rhs, T* work, 
                (long long)T_ * bb, lower_bs, upper_bs, (long long)T_ * b, T_, 1};
   for (int l = 0; l < p.nlev; ++l) {
     const int H = p.H[l];
-    cr_reduce_kernel<T, FACT><<<dim3(H, B), kThreads, smem_red, stream>>>(
-        lev, b, H, chunk, sol[l], Dp[l], Dq[l], rp[l], rq[l], Ln[l], Un[l]);
+    cr_reduce_kernel<T, FAM><<<dim3(H, B), kThreads, smem_red, stream>>>(
+        lev, b, H, refine, chunk, sol[l], Dp[l], Dq[l], rp[l], rq[l], Ln[l], Un[l]);
     err = (int)cudaGetLastError();
     if (err) return err;
     lev = Level<T>{Dp[l], Dq[l], Ln[l], Un[l], rp[l], rq[l],
                    H * bb, H * bb, H * bb, (long long)H * b, H, 0};
   }
-  cr_base_kernel<T, FACT><<<dim3(1, B), kThreads, smem_base, stream>>>(lev, b, chunk,
-                                                                       xl[p.nlev]);
+  cr_base_kernel<T, FAM><<<dim3(1, B), kThreads, smem_base, stream>>>(lev, b, refine, chunk,
+                                                                      xl[p.nlev]);
   err = (int)cudaGetLastError();
   if (err) return err;
   for (int l = p.nlev - 1; l >= 0; --l) {
@@ -584,7 +374,7 @@ int solve(const T* diag, const T* lower, const T* upper, const T* rhs, T* work, 
 }
 
 template <typename T>
-int dispatch(int fact, const void* diag, const void* lower, const void* upper,
+int dispatch(int fam, int refine, const void* diag, const void* lower, const void* upper,
              const void* rhs, void* work, void* x, int B, int T_, int b, long long lbs,
              long long ubs, cudaStream_t s) {
   const T* d = static_cast<const T*>(diag);
@@ -593,9 +383,14 @@ int dispatch(int fact, const void* diag, const void* lower, const void* upper,
   const T* r = static_cast<const T*>(rhs);
   T* wk = static_cast<T*>(work);
   T* xx = static_cast<T*>(x);
-  if (fact == kQR) return solve<T, kQR>(d, lo, up, r, wk, xx, B, T_, b, lbs, ubs, s);
-  if (fact == kGJP) return solve<T, kGJP>(d, lo, up, r, wk, xx, B, T_, b, lbs, ubs, s);
-  return solve<T, kGJPR>(d, lo, up, r, wk, xx, B, T_, b, lbs, ubs, s);
+  switch (fam) {
+    case kQR: return solve<T, kQR>(d, lo, up, r, wk, xx, B, T_, b, 0, lbs, ubs, s);
+    case kGJ: return solve<T, kGJ>(d, lo, up, r, wk, xx, B, T_, b, 0, lbs, ubs, s);
+    case kGJP: return solve<T, kGJP>(d, lo, up, r, wk, xx, B, T_, b, refine, lbs, ubs, s);
+    case kGJB: return solve<T, kGJB>(d, lo, up, r, wk, xx, B, T_, b, refine, lbs, ubs, s);
+    case kGJBP: return solve<T, kGJBP>(d, lo, up, r, wk, xx, B, T_, b, refine, lbs, ubs, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -603,19 +398,21 @@ int dispatch(int fact, const void* diag, const void* lower, const void* upper,
 // Elements of the workspace buffer mcp_cr_solve needs for (B, T, b).
 extern "C" long long mcp_cr_workspace(int B, int T, int b) { return workspace_elems(B, T, b); }
 
-// dtype: 0 = float32, 1 = float64; fact: 0 = qr, 1 = gjp, 2 = gjpr. Layouts
+// dtype: 0 = float32, 1 = float64; fam: the fact's family (solve_aug.cuh:
+// 0 qr, 1 gj, 2 gjp, 3 gjb, 4 gjbp) and refine its refinement steps (0 for
+// qr and gj). Layouts
 // (row-major, contiguous within a system): diag (B,T,b,b), lower/upper
 // (B,T-1,b,b) with a lane stride of `*_bs` elements (0 = one band shared by
 // every lane), rhs (B,T,b), work (mcp_cr_workspace elements), x (B,T,b).
 // Launches on `stream`; returns the first CUDA error (0 on success).
-extern "C" int mcp_cr_solve(int dtype, int fact, const void* diag, const void* lower,
+extern "C" int mcp_cr_solve(int dtype, int fam, int refine, const void* diag, const void* lower,
                             const void* upper, const void* rhs, void* work, void* x, int B,
                             int T, int b, long long lower_bs, long long upper_bs,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(fact, diag, lower, upper, rhs, work, x, B, T, b, lower_bs,
+    return dispatch<float>(fam, refine, diag, lower, upper, rhs, work, x, B, T, b, lower_bs,
                            upper_bs, s);
-  return dispatch<double>(fact, diag, lower, upper, rhs, work, x, B, T, b, lower_bs, upper_bs,
-                          s);
+  return dispatch<double>(fam, refine, diag, lower, upper, rhs, work, x, B, T, b, lower_bs,
+                          upper_bs, s);
 }

@@ -16,23 +16,18 @@ computes (``mcp_tpu/kernels/thomas_pallas.py:1055``, inside
   back-substitutes x_o = D_o⁻¹r_o − D_o⁻¹L_o·x_e − D_o⁻¹U_o·x_{e+1};
 * the T=1 base solves [D | r].
 
-The in-block factorization ``fact`` is one of
-
-* ``"qr"``: pivot-free Householder QR (``thomas._qr_solve_aug``);
-* ``"gjp"``: Gauss–Jordan with implicit partial pivoting (``_gjp_solve_aug``,
-  ``:110``): per column the largest |entry| among unused rows is the pivot
-  (the first such row on ties; used rows score −1), every column of every
-  other row is eliminated, the pivot row is scaled, and the rows come out in
-  pivot order, unscrambled by one contraction with the eliminated head;
-* ``"gjpr"``: gjp on [M | I], which also yields A⁻¹, then one refinement
-  step X += A⁻¹(N − A·X) (``_gjpr_solve_aug``, ``:396``);
-* ``"lu"`` (plain version only): ``torch.linalg.solve``, the per-block LU of
-  tier "tridiag_cr" (``block_tridiag.block_cyclic_reduction_solve``).
+The in-block factorization ``fact`` is any fact of ``solve_aug`` (the JAX
+package's ``_solve_aug``, ``:431``): ``"qr"``, ``"gj"``, ``"gjp"``,
+``"gjpr"``, the blocked ``"gjb"``, ``"gjbr"``, ``"gjbr2"`` and the blocked
+pivoted ``"gjbp"``, ``"gjbpr"``, ``"gjbpr2"``, ``"gjbprl"`` (gjbpr's algebra,
+one kernel for both; their launches are counted apart), and ``"lu"`` in the
+plain version only (``torch.linalg.solve``, the per-block LU of tier
+"tridiag_cr").
 
 Failure semantics are the JAX package's: a Gauss–Jordan pivot below 1e-30 in
-magnitude is clamped to 1e-30 (a singular block's pivot row is scaled by
-1e30, but its head column stays zero, so the contraction leaves finite
-values in that system); a zero QR pivot gives inf/NaN.
+magnitude is clamped to 1e-30 (with pivoting, a singular block's pivot row
+is scaled by 1e30, but its head column stays zero, so the contraction leaves
+finite values in that system); a zero QR pivot gives inf/NaN.
 
 A CUDA tensor launches the hand-written kernel ``csrc/cyclic_reduction.cu``
 or raises; a CPU tensor runs ``cr_solve_plain``, the same algebra in batched
@@ -46,68 +41,10 @@ import ctypes
 
 import torch
 
-from .thomas import _batch_stride, _check, _qr_solve_aug
+from .solve_aug import FACT_CODES, FACTS, SMEM_LIMIT, aug_smem_bytes, solve_aug_plain
+from .thomas import _batch_stride, _check
 
 Tensor = torch.Tensor
-
-FACTS = ("qr", "gjp", "gjpr")
-_EPS = 1e-30
-#: Shared memory one block may use on an H100 (232,448 bytes).
-_SMEM_LIMIT = 232448
-
-
-def gjp_solve_aug_plain(M: Tensor, b: int) -> Tensor:
-    """Solve M[:, :, :b] X = M[:, :, b:] for a batch, M (S, b, nc), by
-    Gauss–Jordan with implicit partial pivoting. Returns X (S, b, nc − b)."""
-    S, _, nc = M.shape
-    rows = torch.arange(b, device=M.device)
-    rows_f = rows.to(M.dtype)
-    ar = torch.arange(S, device=M.device)
-    used = M.new_zeros((S, b))
-    for k in range(b):
-        col = M[:, :, k]
-        score = col.abs() * (1.0 - used) - used
-        top = score.amax(dim=1, keepdim=True)  # NaN propagates: no pivot then
-        first = torch.where(score == top, rows_f, float(b)).amin(dim=1).long()
-        has = (first < b)[:, None]
-        prow = torch.where(has, M[ar, first.clamp(max=b - 1)], torch.zeros_like(M[:, 0]))
-        piv = prow[:, k]
-        inv = 1.0 / torch.where(piv.abs() > _EPS, piv, torch.full_like(piv, _EPS))
-        f = col * inv[:, None]
-        onehot = rows[None, :] == first[:, None]
-        M = torch.where(
-            onehot[:, :, None],
-            (prow * inv[:, None])[:, None, :],
-            M - f[:, :, None] * prow[:, None, :],
-        )
-        used = used + onehot.to(M.dtype)
-    # After full Jordan elimination the head is the pivot permutation: row
-    # p_k holds e_k, so X[k] = Σ_j head[j, k]·M[j, b:].
-    return M[:, :, :b].transpose(1, 2) @ M[:, :, b:]
-
-
-def gjpr_solve_aug_plain(M: Tensor, b: int) -> Tensor:
-    """gjp on [M | I] (the same elimination also yields A⁻¹), then one
-    refinement step X + A⁻¹(N − A·X), with A = M[:, :, :b], N = M[:, :, b:]."""
-    S, _, nc = M.shape
-    A, N = M[:, :, :b], M[:, :, b:]
-    eye = torch.eye(b, dtype=M.dtype, device=M.device).expand(S, b, b)
-    sol = gjp_solve_aug_plain(torch.cat([M, eye], dim=2), b)
-    X, Ainv = sol[:, :, : nc - b], sol[:, :, nc - b :]
-    return X + Ainv @ (N - A @ X)
-
-
-def solve_aug_plain(M: Tensor, b: int, fact: str) -> Tensor:
-    """The in-block augmented solve of factorization ``fact``."""
-    if fact == "gjp":
-        return gjp_solve_aug_plain(M, b)
-    if fact == "gjpr":
-        return gjpr_solve_aug_plain(M, b)
-    if fact == "qr":
-        return _qr_solve_aug(M, b)
-    if fact == "lu":
-        return torch.linalg.solve(M[:, :, :b], M[:, :, b:])
-    raise ValueError(f"fact must be one of {FACTS + ('lu',)}, got {fact!r}")
 
 
 def _cr(D: Tensor, L: Tensor, U: Tensor, r: Tensor, b: int, fact: str) -> Tensor:
@@ -158,16 +95,16 @@ def cr_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor,
 
 def check_fits(b: int, fact: str, dtype):
     """Raise when the kernel cannot hold one odd-block solve in a block's
-    shared memory (e.g. gjp/gjpr at b=100 in float64): the augmented b×nc
-    matrix [D | L | U | r] (plus I for gjpr), three vectors, four scalars and
-    at least a one-column scratch (``csrc/cyclic_reduction.cu::smem_bytes``
-    with chunk = 1)."""
-    nc = 3 * b + 1 + (b if fact == "gjpr" else 0)
-    need = torch.empty((), dtype=dtype).element_size() * (b * nc + 2 * b + nc + 4 + b)
-    if need > _SMEM_LIMIT:
+    shared memory (every fact at b=100 in float64): the working set of
+    ``csrc/solve_aug.cuh`` for [D | L | U | r] (plus I with refinement) with
+    a one-column scratch slab (``aug_smem_bytes``)."""
+    family, refine = FACT_CODES[fact]
+    nc = 3 * b + 1 + (b if refine else 0)
+    need = aug_smem_bytes(b, nc, family, 1, torch.empty((), dtype=dtype).element_size())
+    if need > SMEM_LIMIT:
         raise ValueError(
             f"cr_thomas_solve: fact={fact!r} at b={b} in {dtype} needs {need} bytes "
-            f"of shared memory, over the card's {_SMEM_LIMIT} per block"
+            f"of shared memory, over the card's {SMEM_LIMIT} per block"
         )
 
 
@@ -192,7 +129,7 @@ def cr_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
     work = torch.empty(lib.mcp_cr_workspace(B, T, b), dtype=diag.dtype, device=diag.device)
     with torch.cuda.device(diag.device):
         err = lib.mcp_cr_solve(
-            0 if diag.dtype == torch.float32 else 1, FACTS.index(fact),
+            0 if diag.dtype == torch.float32 else 1, *FACT_CODES[fact],
             diag.data_ptr(), lower.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
             work.data_ptr(), x.data_ptr(), B, T, b, lower_bs, upper_bs,
             torch.cuda.current_stream().cuda_stream,
@@ -214,6 +151,7 @@ def _lib():
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mcp_cr_workspace.argtypes = [ci, ci, ci]
         lib.mcp_cr_workspace.restype = ll
-        lib.mcp_cr_solve.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ll, ll, vp]
+        lib.mcp_cr_solve.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ll, ll,
+                                     vp]
         lib.mcp_cr_solve.restype = ci
     return lib

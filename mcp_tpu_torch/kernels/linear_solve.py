@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from .thomas import _qr_solve_aug
+from .solve_aug import qr_solve_aug_plain
 
 Tensor = torch.Tensor
 
@@ -82,9 +82,9 @@ def gji_solve_plain(A: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
 
 def qr_solve_plain(A: Tensor, b: Tensor) -> Tensor:
     """K4b/K4c's algebra in batched PyTorch ops, on any device: the
-    Householder solve of K1's steps (``thomas._qr_solve_aug``) on [A | b]."""
+    Householder solve of K1's steps (``solve_aug.qr_solve_aug_plain``) on [A | b]."""
     n = A.shape[-1]
-    return _qr_solve_aug(torch.cat([A, b[:, :, None]], dim=2), n)[:, :, 0]
+    return qr_solve_aug_plain(torch.cat([A, b[:, :, None]], dim=2), n)[:, :, 0]
 
 
 def _check(name: str, A: Tensor, b: Tensor):

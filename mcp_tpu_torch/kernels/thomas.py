@@ -1,6 +1,6 @@
-"""K1: batched block-tridiagonal solve, pivot-free Householder block-Thomas.
+"""K1: batched block-tridiagonal solve by the one-way block-Thomas sweep.
 
-``thomas_solve(diag, lower, upper, rhs)`` solves, per system, the block-
+``thomas_solve(diag, lower, upper, rhs, *, fact)`` solves, per system, the block-
 tridiagonal system with diagonal blocks diag (B,T,b,b), sub-diagonal blocks
 lower (B,T-1,b,b) (lower[t] couples block t+1 to block t), super-diagonal
 blocks upper (B,T-1,b,b) and right-hand side rhs (B,T,b) → x (B,T,b): the
@@ -8,14 +8,16 @@ layout of the JAX package's ``pallas_block_thomas``. lower/upper may be one
 band expanded over the batch (batch stride 0).
 
 Forward sweep: (D_t − L_t C_{t−1}) [C_t | d_t] = [U_t | r_t − L_t d_{t−1}]
-by Householder QR without pivoting; backward: x_t = d_t − C_t x_{t+1}. A
-zero or non-finite pivot gives inf/NaN in x.
+by the in-block factorization ``fact`` (``solve_aug``: ``"qr"``, pivot-free
+Householder QR, the default; ``"gj"``, ``"gjp"`` or ``"gjpr"``, the
+Gauss–Jordan facts); backward: x_t = d_t − C_t x_{t+1}. A zero or non-finite
+QR pivot gives inf/NaN in x; a Gauss–Jordan pivot is clamped to 1e-30.
 
 A CUDA tensor launches the hand-written kernel ``csrc/thomas.cu`` (which
-replaces ``mcp_tpu/kernels/thomas_pallas.py::_thomas_kernel_lanes`` and
-``_thomas_kernel_packed``) or raises; a CPU tensor runs
+replaces ``mcp_tpu/kernels/thomas_pallas.py::_thomas_kernel_lanes``, QR only,
+and ``_thomas_kernel_packed`` with its facts) or raises; a CPU tensor runs
 ``thomas_solve_plain``, the same algebra in batched PyTorch ops.
-``thomas_solve.launches`` counts kernel launches.
+``thomas_solve.launches`` counts kernel launches per fact (a dict).
 """
 
 from __future__ import annotations
@@ -24,41 +26,20 @@ import ctypes
 
 import torch
 
+from .solve_aug import FACT_CODES, SMEM_LIMIT, aug_smem_bytes, solve_aug_plain
+
 Tensor = torch.Tensor
 
 #: Largest block size the sweep takes (the Pallas sweep's own range).
 MAX_BLOCK = 64
-_EPS = 1e-30
+#: The facts of the sweeps K1 and K7a (the JAX package's packed sweeps).
+SWEEP_FACTS = ("qr", "gj", "gjp", "gjpr")
 
 
-def _qr_solve_aug(M: Tensor, b: int) -> Tensor:
-    """Solve M[:, :, :b] X = M[:, :, b:] for a batch, M (B, b, nc), by
-    pivot-free Householder QR (the algebra of the JAX package's
-    ``_qr_solve_aug``). Returns X (B, b, nc - b)."""
-    rows = torch.arange(b, device=M.device)
-    for k in range(b):
-        below = (rows >= k).to(M.dtype)
-        pivot = (rows == k).to(M.dtype)
-        v = M[:, :, k] * below  # (B, b)
-        vk = v[:, k : k + 1]
-        norm = torch.sqrt((v * v).sum(dim=1, keepdim=True) + _EPS)
-        sign = torch.where(vk >= 0, 1.0, -1.0).to(M.dtype)
-        u = v + (sign * norm) * pivot
-        beta = 1.0 / (norm * (norm + vk.abs()) + _EPS)
-        w = (u[:, None, :] @ M)[:, 0, :]  # (B, nc)
-        M = M - (beta * u)[:, :, None] * w[:, None, :]
-    xs = [None] * b
-    for k in range(b - 1, -1, -1):
-        acc = M[:, k, b:]
-        if k < b - 1:
-            acc = acc - (M[:, k : k + 1, k + 1 : b] @ torch.stack(xs[k + 1 :], dim=1))[:, 0]
-        xs[k] = acc / M[:, k, k : k + 1]
-    return torch.stack(xs, dim=1)
-
-
-def thomas_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
-    """The Householder block-Thomas sweep in batched PyTorch ops, on any
-    device (the reference the kernel is held against)."""
+def thomas_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor,
+                       fact: str = "qr") -> Tensor:
+    """The block-Thomas sweep in batched PyTorch ops, on any device (the
+    reference the kernel is held against)."""
     B, T, b, _ = diag.shape
     zero = torch.zeros_like(diag[:, 0])
     Cs, ds = [], []
@@ -69,7 +50,7 @@ def thomas_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) 
             D = D - L @ Cs[-1]
             r = r - (L @ ds[-1][..., None])[..., 0]
         U = upper[:, t] if t < T - 1 else zero
-        X = _qr_solve_aug(torch.cat([D, U, r[..., None]], dim=2), b)
+        X = solve_aug_plain(torch.cat([D, U, r[..., None]], dim=2), b, fact)
         Cs.append(X[..., :b])
         ds.append(X[..., b])
     xs = [None] * T
@@ -120,33 +101,59 @@ def _batch_stride(a: Tensor, name: str) -> int:
     return 0 if a.shape[0] > 1 and a.stride(0) == 0 else per
 
 
-def thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
+def sweep_smem_bytes(b: int, fact: str, itemsize: int) -> int:
+    """Shared memory of one direction of the sweep (``csrc/thomas.cu::
+    dir_bytes``): the working set of ``solve_aug.cuh`` for [D − LC | U | r]
+    (plus I with refinement), the original [D − LC | U | r] with refinement,
+    L (b×b, then the scratch slab) and [C | d] (b×(b+1))."""
+    family, refine = FACT_CODES[fact]
+    ld = 2 * b + 1 + (b if refine else 0)
+    extra = (b * (2 * b + 1) if refine else 0) + b * b + b * (b + 1)
+    return aug_smem_bytes(b, ld, family, 0, itemsize) + itemsize * extra
+
+
+def check_fits(b: int, fact: str, dtype, directions: int = 1, name: str = "thomas_solve"):
+    """Raise when ``directions`` working sets of the sweep at (b, fact, dtype)
+    do not fit one block's shared memory (e.g. gjpr at b=64 in float64)."""
+    need = directions * sweep_smem_bytes(b, fact, torch.empty((), dtype=dtype).element_size())
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: fact={fact!r} at b={b} in {dtype} needs {need} bytes of shared "
+            f"memory, over the card's {SMEM_LIMIT} per block"
+        )
+
+
+def thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
+                 fact: str = "qr") -> Tensor:
     """Batched block-tridiagonal solve (see the module docstring)."""
     _check(diag, lower, upper, rhs)
     lower_bs, upper_bs = _batch_stride(lower, "lower"), _batch_stride(upper, "upper")
+    if fact not in SWEEP_FACTS:
+        raise ValueError(f"thomas_solve: fact must be one of {SWEEP_FACTS}, got {fact!r}")
     if diag.device.type == "cpu":
-        return thomas_solve_plain(diag, lower, upper, rhs)
+        return thomas_solve_plain(diag, lower, upper, rhs, fact)
     if diag.device.type != "cuda":
         raise ValueError(f"thomas_solve runs on cuda or cpu, not {diag.device}")
     B, T, b, _ = diag.shape
+    check_fits(b, fact, diag.dtype)
     x = torch.empty_like(rhs)
     if B == 0:
         return x
     cd = torch.empty((B, T, b, b + 1), dtype=diag.dtype, device=diag.device)
     with torch.cuda.device(diag.device):
         err = _entry()(
-            0 if diag.dtype == torch.float32 else 1,
+            0 if diag.dtype == torch.float32 else 1, *FACT_CODES[fact],
             diag.data_ptr(), lower.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
             cd.data_ptr(), x.data_ptr(), B, T, b, lower_bs, upper_bs,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"thomas kernel launch failed: CUDA error {err}")
-    thomas_solve.launches += 1
+    thomas_solve.launches[fact] += 1
     return x
 
 
-thomas_solve.launches = 0
+thomas_solve.launches = dict.fromkeys(SWEEP_FACTS, 0)
 
 
 def _entry():
@@ -155,8 +162,7 @@ def _entry():
     fn = load("thomas").mcp_thomas_solve
     if fn.argtypes is None:
         vp = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp, vp, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_longlong, vp]
+        ci, ll = ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ll, ll, vp]
         fn.restype = ctypes.c_int
     return fn

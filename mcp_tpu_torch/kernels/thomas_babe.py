@@ -1,7 +1,7 @@
 """K7a: batched block-tridiagonal solve by the two-way ("burn at both ends")
-Householder block-Thomas sweep.
+block-Thomas sweep.
 
-``babe_thomas_solve(diag, lower, upper, rhs)`` takes K1's layout: diag
+``babe_thomas_solve(diag, lower, upper, rhs, *, fact)`` takes K1's layout: diag
 (B,T,b,b), lower/upper (B,T-1,b,b) (lower[t] couples block t+1 to block t;
 each band stored per system or expanded over the batch with stride 0), rhs
 (B,T,b) → x (B,T,b), T ≥ 2. It computes what the JAX package's
@@ -14,18 +14,20 @@ with ml = ⌈T/2⌉:
   system, whose "previous" coupling is U_t and "next" coupling is L_{t−1}:
   (D_t − U_t E_{t+1}) [E_t | e_t] = [L_{t−1} | r_t − U_t e_{t+1}], so
   x_t = e_t − E_t x_{t−1} (the JAX package's identity pad block for odd T
-  solves to C = 0, d = 0 exactly and is skipped);
+  solves to C = 0, d = 0 exactly under every fact and is skipped);
 * junction: (I − C_{ml−1} E_{ml}) x_{ml−1} = d_{ml−1} − C_{ml−1} e_{ml}, by
   one more in-block solve, then x_{ml} = e_{ml} − E_{ml} x_{ml−1};
 * back substitution of both chains.
 
-Every in-block solve is K1's pivot-free Householder QR (``thomas._qr_solve_aug``,
-the JAX package's ``_qr_solve_aug``). A zero or non-finite pivot gives
-inf/NaN in x; nothing sanitizes it.
+Every in-block solve, the junction's included, is the fact ``fact`` of K1's
+sweep (``solve_aug``: "qr", "gj", "gjp" or "gjpr"; the JAX package's
+``_solve_aug`` at ``:779`` and ``:798``). A zero or non-finite QR pivot gives
+inf/NaN in x; a Gauss–Jordan pivot is clamped to 1e-30; nothing sanitizes x.
 
 A CUDA tensor launches the hand-written kernel ``csrc/thomas_babe.cu`` or
 raises; a CPU tensor runs ``babe_solve_plain``, the same algebra in batched
-PyTorch ops. ``babe_thomas_solve.launches`` counts kernel launches.
+PyTorch ops. ``babe_thomas_solve.launches`` counts kernel launches per fact
+(a dict).
 """
 
 from __future__ import annotations
@@ -34,15 +36,14 @@ import ctypes
 
 import torch
 
-from .thomas import MAX_BLOCK, _batch_stride, _check, _qr_solve_aug
+from .solve_aug import FACT_CODES, solve_aug_plain
+from .thomas import MAX_BLOCK, SWEEP_FACTS, _batch_stride, _check
+from .thomas import check_fits as _sweep_fits
 
 Tensor = torch.Tensor
 
-#: Shared memory one block may use on an H100 (232,448 bytes).
-_SMEM_LIMIT = 232448
 
-
-def _sweep_step(D, L, U, r, prev, b):
+def _sweep_step(D, L, U, r, prev, b, fact):
     """One step of a one-way sweep over a batch: [C | d] of
     (D − L C_prev) [C | d] = [U | r − L d_prev]; ``L`` None at the chain's
     start."""
@@ -50,11 +51,12 @@ def _sweep_step(D, L, U, r, prev, b):
         C_prev, d_prev = prev
         D = D - L @ C_prev
         r = r - (L @ d_prev[..., None])[..., 0]
-    X = _qr_solve_aug(torch.cat([D, U, r[..., None]], dim=2), b)
+    X = solve_aug_plain(torch.cat([D, U, r[..., None]], dim=2), b, fact)
     return X[..., :b], X[..., b]
 
 
-def babe_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
+def babe_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor,
+                     fact: str = "qr") -> Tensor:
     """The two-way sweep in batched PyTorch ops, on any device (the
     reference the kernel is held against)."""
     B, T, b, _ = diag.shape
@@ -63,21 +65,21 @@ def babe_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) ->
     lower = lower.expand(B, T - 1, b, b)
     upper = upper.expand(B, T - 1, b, b)
     ml = (T + 1) // 2
-    left = [_sweep_step(diag[:, 0], None, upper[:, 0], rhs[:, 0], None, b)]
+    left = [_sweep_step(diag[:, 0], None, upper[:, 0], rhs[:, 0], None, b, fact)]
     for t in range(1, ml):  # [C_t | d_t], t = 0..ml−1
         left.append(_sweep_step(diag[:, t], lower[:, t - 1], upper[:, t], rhs[:, t],
-                                left[-1], b))
-    right = [_sweep_step(diag[:, T - 1], None, lower[:, T - 2], rhs[:, T - 1], None, b)]
+                                left[-1], b, fact))
+    right = [_sweep_step(diag[:, T - 1], None, lower[:, T - 2], rhs[:, T - 1], None, b, fact)]
     for t in range(T - 2, ml - 1, -1):  # [E_t | e_t], t = T−1 down to ml
         right.append(_sweep_step(diag[:, t], upper[:, t], lower[:, t - 1], rhs[:, t],
-                                 right[-1], b))
+                                 right[-1], b, fact))
 
     mv = lambda A, v: (A @ v[..., None])[..., 0]
     (C_L, d_L), (E_R, e_R) = left[-1], right[-1]
     eye = torch.eye(b, dtype=diag.dtype, device=diag.device).expand(B, b, b)
     Mj = torch.cat([eye - C_L @ E_R, (d_L - mv(C_L, e_R))[..., None]], dim=2)
     xs = [None] * T
-    xs[ml - 1] = _qr_solve_aug(Mj, b)[..., 0]
+    xs[ml - 1] = solve_aug_plain(Mj, b, fact)[..., 0]
     xs[ml] = e_R - mv(E_R, xs[ml - 1])
     for k in range(ml - 2, -1, -1):  # left chain: x_k = d_k − C_k x_{k+1}
         C, d = left[k]
@@ -88,27 +90,15 @@ def babe_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) ->
     return torch.stack(xs, dim=1)
 
 
-def smem_bytes(b: int, dtype) -> int:
-    """Shared memory of one launch (``csrc/thomas_babe.cu::smem_bytes``): per
-    direction K1's working set [D − LC | U | r] (b×(2b+1)), L (b×b),
-    [C | d] (b×(b+1)), the Householder vector (b), uᵀM (2b+1) and β."""
-    nc = 2 * b + 1
-    per = b * nc + b * b + b * (b + 1) + b + nc + 1
-    return 2 * per * torch.empty((), dtype=dtype).element_size()
+def check_fits(b: int, dtype, fact: str = "qr"):
+    """Raise when both directions' working sets (K1's, ``thomas.
+    sweep_smem_bytes``) do not fit one block's shared memory (b=64 in
+    float64)."""
+    _sweep_fits(b, fact, dtype, directions=2, name="babe_thomas_solve")
 
 
-def check_fits(b: int, dtype):
-    """Raise when both directions' working sets do not fit one block's
-    shared memory (b=64 in float64)."""
-    need = smem_bytes(b, dtype)
-    if need > _SMEM_LIMIT:
-        raise ValueError(
-            f"babe_thomas_solve: b={b} in {dtype} needs {need} bytes of shared "
-            f"memory, over the card's {_SMEM_LIMIT} per block"
-        )
-
-
-def babe_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
+def babe_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
+                      fact: str = "qr") -> Tensor:
     """Batched block-tridiagonal solve by the two-way sweep (see the module
     docstring)."""
     _check(diag, lower, upper, rhs, name="babe_thomas_solve", max_block=MAX_BLOCK)
@@ -116,29 +106,31 @@ def babe_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -
     B, T, b, _ = diag.shape
     if T < 2:
         raise ValueError("babe_thomas_solve needs T >= 2 (T = 1 takes the one-way sweep)")
+    if fact not in SWEEP_FACTS:
+        raise ValueError(f"babe_thomas_solve: fact must be one of {SWEEP_FACTS}, got {fact!r}")
     if diag.device.type == "cpu":
-        return babe_solve_plain(diag, lower, upper, rhs)
+        return babe_solve_plain(diag, lower, upper, rhs, fact)
     if diag.device.type != "cuda":
         raise ValueError(f"babe_thomas_solve runs on cuda or cpu, not {diag.device}")
-    check_fits(b, diag.dtype)
+    check_fits(b, diag.dtype, fact)
     x = torch.empty_like(rhs)
     if B == 0:
         return x
     cd = torch.empty((B, T, b, b + 1), dtype=diag.dtype, device=diag.device)
     with torch.cuda.device(diag.device):
         err = _entry()(
-            0 if diag.dtype == torch.float32 else 1,
+            0 if diag.dtype == torch.float32 else 1, *FACT_CODES[fact],
             diag.data_ptr(), lower.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
             cd.data_ptr(), x.data_ptr(), B, T, b, lower_bs, upper_bs,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"two-way thomas kernel launch failed: CUDA error {err}")
-    babe_thomas_solve.launches += 1
+    babe_thomas_solve.launches[fact] += 1
     return x
 
 
-babe_thomas_solve.launches = 0
+babe_thomas_solve.launches = dict.fromkeys(SWEEP_FACTS, 0)
 
 
 def _entry():
@@ -147,6 +139,6 @@ def _entry():
     fn = load("thomas_babe").mcp_babe_solve
     if fn.argtypes is None:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ll, ll, vp]
+        fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ll, ll, vp]
         fn.restype = ci
     return fn

@@ -1,8 +1,8 @@
-"""The shape- and batch-aware block-tridiagonal solves of tiers
-``"tridiag_pallas"`` and ``"tridiag_auto"``: the mode choice of the JAX
-package's ``pallas_block_thomas`` and its ``_auto_pick``
-(``mcp_tpu/kernels/thomas_pallas.py:1359-1393, 1512-1573``), routed to this
-port's kernels.
+"""The shape- and batch-aware block-tridiagonal solves of the tiers
+``"tridiag_pallas*"`` and ``"tridiag_auto"``: the mode choice of the JAX
+package's ``pallas_block_thomas``, its ``_auto_pick`` and its tier table
+(``mcp_tpu/kernels/thomas_pallas.py:1359-1393, 1512-1573, 1608-1646``),
+routed to this port's kernels.
 
 The thresholds are the JAX package's, copied so that both packages take the
 same route for the same (B, T, b); they were measured on a TPU, and the
@@ -11,12 +11,14 @@ and K7a at the N=4 flagship shape).
 
 Routes (``route_solver``): ``"cr"`` → K3 (``cyclic_reduction.cr_thomas_solve``)
 with the requested factorization; ``"babe"`` → K7a
-(``thomas_babe.babe_thomas_solve``, the two-way sweep); ``"lanes"``,
-``"packed"`` and ``"padded"`` → K1 (``thomas.thomas_solve``). The lane-major
-(``_thomas_kernel_lanes``), packed (``_thomas_kernel_packed``) and unpacked
-(``_thomas_kernel``, K7b) one-way sweeps all run K1's algebra; which of them
-the JAX package takes is a TPU layout rule (a 128-lane tile of systems, or
-[D|L|U|r] fitting one lane tile).
+(``thomas_babe.babe_thomas_solve``, the two-way sweep) with it; ``"packed"``
+→ K1 (``thomas.thomas_solve``) with it; ``"lanes"`` and ``"padded"`` → K1
+with QR whatever the factorization, as in the JAX package (its lane-major
+sweep ``_thomas_kernel_lanes`` takes QR only, and its unpacked sweep
+``_thomas_kernel``, K7b, drops ``fact``: ``thomas_pallas.py:975, 1446-1449``).
+The lane-major, packed and unpacked one-way sweeps all run K1's algebra;
+which of them the JAX package takes is a TPU layout rule (a 128-lane tile of
+systems, or [D|L|U|r] fitting one lane tile).
 """
 
 from __future__ import annotations
@@ -87,20 +89,41 @@ def route_solver(B: int, T: int, b: int, itemsize: int, mode: Optional[str] = No
     mode = kernel_mode(B, T, b, itemsize, mode, fact)
     if mode == "cr":
         return CR_SOLVERS[fact]
-    if fact != "qr":
-        raise NotImplementedError(
-            f"the {mode} sweep with fact={fact!r} needs the K7a/K1 gj, gjp and gjpr "
-            "facts, not ported yet (ROADMAP Queue 2)"
-        )
-    return babe_thomas_solve if mode == "babe" else thomas_solve
+    if mode in ("lanes", "padded"):
+        fact = "qr"
+    sweep = babe_thomas_solve if mode == "babe" else thomas_solve
+    return sweep if fact == "qr" else functools.partial(sweep, fact=fact)
 
 
-def pallas_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
-    """Tier "tridiag_pallas": the block-tridiagonal solve (K1's layout) on
-    the route ``pallas_block_thomas`` takes for this (B, T, b) with no mode
-    asked for and fact "qr"."""
+#: The JAX package's fixed-route tiers (``_make_thomas_solve``'s table):
+#: tier → (mode, fact) of ``pallas_block_thomas``.
+PALLAS_TIERS = {
+    "tridiag_pallas": (None, "qr"),
+    "tridiag_pallas_cr": ("cr", "qr"),
+    "tridiag_pallas_gj": (None, "gj"),
+    "tridiag_pallas_gjp": (None, "gjp"),
+    "tridiag_pallas_gjpr": (None, "gjpr"),
+    "tridiag_pallas_crgj": ("cr", "gj"),
+    "tridiag_pallas_crgjp": ("cr", "gjp"),
+    "tridiag_pallas_crgjpr": ("cr", "gjpr"),
+    "tridiag_pallas_crgjb": ("cr", "gjb"),
+    "tridiag_pallas_crgjbr": ("cr", "gjbr"),
+    "tridiag_pallas_crgjbr2": ("cr", "gjbr2"),
+    "tridiag_pallas_crgjbpr": ("cr", "gjbpr"),
+    "tridiag_pallas_crgjbpr2": ("cr", "gjbpr2"),
+    "tridiag_pallas_crgjbprl": ("cr", "gjbprl"),
+    "tridiag_pallas_lanes": ("lanes", "qr"),
+}
+
+
+def pallas_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
+                        mode: Optional[str] = None, fact: str = "qr") -> Tensor:
+    """The block-tridiagonal solve (K1's layout) on the route
+    ``pallas_block_thomas`` takes for this (B, T, b) with ``mode`` and
+    ``fact`` asked for: tier "tridiag_pallas" with the defaults, the other
+    fixed-route tiers with theirs (``PALLAS_TIERS``)."""
     B, T, b, _ = diag.shape
-    return route_solver(B, T, b, diag.element_size())(diag, lower, upper, rhs)
+    return route_solver(B, T, b, diag.element_size(), mode, fact)(diag, lower, upper, rhs)
 
 
 def auto_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:

@@ -31,11 +31,14 @@ one host sync (a ``.any()`` read).
 Linear-solver tiers: the banded tiers of trajectory games (``BANDED_SOLVERS``:
 ``"tridiag"`` and ``"tridiag_cr"``, the plain LU block-Thomas and cyclic
 reduction; ``"tridiag_pallas"``, the JAX package's shape- and batch-aware
-route to K1, the two-way sweep K7a or K3 with QR; ``"tridiag_pallas_cr"``,
-``"tridiag_pallas_crgjp"``, ``"tridiag_pallas_crgjpr"`` → K3 with the qr,
-gjp and gjpr factorizations; ``"tridiag_auto"``, the JAX package's shape-
-and batch-aware route to K1, K7a or K3; the fused K2 linesearch on
-``"tridiag_pallas"`` and ``"tridiag_auto"``) and the dense tiers of ``linalg.py``
+route to K1, the two-way sweep K7a or K3 with QR; every other
+``"tridiag_pallas_*"`` tier of the JAX package on its fixed mode and
+in-block factorization (``thomas_dispatch.PALLAS_TIERS``: ``_gj``, ``_gjp``,
+``_gjpr`` → K1 or K7a with that factorization where the JAX package's route
+keeps it, ``_cr`` and ``_crgj*`` → K3 with it, ``_lanes`` → K1 with QR);
+``"tridiag_auto"``, the JAX package's shape- and batch-aware route to K1,
+K7a or K3; the fused K2 linesearch on ``"tridiag_pallas"`` and
+``"tridiag_auto"``) and the dense tiers of ``linalg.py``
 (``"dense"``, ``"condensed"``, ``"schur"``, ``"schur_pallas"`` → K4b/K4c,
 ``"schur_pallas_gj"`` → K4a, ``"schur_pallas_gjr"`` → K5). The dense tiers
 linearize by ``_make_linearizer``: an affine MCP (the QP benchmark) has its
@@ -46,6 +49,7 @@ yet raise ``NotImplementedError`` naming the ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from typing import Optional
@@ -62,7 +66,7 @@ from .kernels.block_tridiag import (
     gh_banded_fast,
 )
 from .kernels.linesearch import _candidate_tensor, linesearch_update
-from .kernels.thomas_dispatch import CR_SOLVERS, auto_thomas_solve, pallas_thomas_solve
+from .kernels.thomas_dispatch import PALLAS_TIERS, auto_thomas_solve, pallas_thomas_solve
 from .linalg import GMRES_NOT_PORTED, NEWTON_STEPS, factored_newton_solver
 from .mcp import PrimalDualMCP
 from .types import FAILED, SOLVED, SolveResult
@@ -183,35 +187,13 @@ def fraction_to_the_boundary_linesearch_pair(
 BANDED_SOLVERS = {
     "tridiag": block_thomas_solve,
     "tridiag_cr": block_cyclic_reduction_solve,
-    "tridiag_pallas": pallas_thomas_solve,
-    "tridiag_pallas_cr": CR_SOLVERS["qr"],
-    "tridiag_pallas_crgjp": CR_SOLVERS["gjp"],
-    "tridiag_pallas_crgjpr": CR_SOLVERS["gjpr"],
+    **{tier: functools.partial(pallas_thomas_solve, mode=mode, fact=fact)
+       for tier, (mode, fact) in PALLAS_TIERS.items()},
     "tridiag_auto": auto_thomas_solve,
-}
-#: The JAX package's other banded tiers, with the kernel each still needs.
-_UNPORTED_BANDED = {
-    **dict.fromkeys(
-        ("tridiag_pallas_gj", "tridiag_pallas_gjp", "tridiag_pallas_gjpr"),
-        "K7a (the sweep with the gj/gjp/gjpr facts)",
-    ),
-    **dict.fromkeys(
-        ("tridiag_pallas_crgj", "tridiag_pallas_crgjb", "tridiag_pallas_crgjbr",
-         "tridiag_pallas_crgjbr2", "tridiag_pallas_crgjbpr", "tridiag_pallas_crgjbpr2",
-         "tridiag_pallas_crgjbprl"),
-        "the K3 facts gj/gjb*/gjbp*",
-    ),
-    "tridiag_pallas_lanes": "K1's forced lane-major mode (use 'tridiag_pallas')",
 }
 
 
 def _check_tier(mcp: PrimalDualMCP, tier: str):
-    if tier in _UNPORTED_BANDED:
-        raise NotImplementedError(
-            f"linear_solver={tier!r} is not ported yet: it needs "
-            f"{_UNPORTED_BANDED[tier]} (ROADMAP Queue 2); this port has "
-            f"{sorted(BANDED_SOLVERS)}"
-        )
     if tier in BANDED_SOLVERS:
         st = mcp.time_structure
         if st is None:

@@ -15,6 +15,7 @@ from mcp_tpu.kernels import thomas_pallas as jtp
 from mcp_tpu.kernels.block_tridiag import banded_jac_mv as jax_banded_jac_mv
 from mcp_tpu.kernels.block_tridiag import block_cyclic_reduction_solve as jax_bcr
 from mcp_tpu_torch.kernels import cyclic_reduction as C
+from mcp_tpu_torch.kernels import solve_aug as SA
 from mcp_tpu_torch.kernels import thomas_dispatch as TD
 from mcp_tpu_torch.kernels.block_tridiag import (
     TimeStructure,
@@ -77,7 +78,7 @@ def test_gjp_first_row_wins_ties():
     A = np.array([[[1.0, 2.0], [-1.0, 3.0]]])
     M = np.concatenate([A, np.array([[[1.0], [2.0]]])], axis=2)
     want = np.asarray(jtp._gjp_solve_aug(jnp.asarray(M), b=2))
-    got = C.gjp_solve_aug_plain(torch.from_numpy(M), 2).numpy()
+    got = SA.gjp_solve_aug_plain(torch.from_numpy(M), 2).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
     np.testing.assert_allclose(got[0, :, 0], np.linalg.solve(A[0], [1.0, 2.0]))
 
@@ -130,7 +131,7 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_no_launch():
         torch.testing.assert_close(shared, ref, rtol=0, atol=0)
     assert C.cr_thomas_solve.launches == before
     with pytest.raises(ValueError, match="fact"):
-        C.cr_thomas_solve(diag, lower, upper, rhs, fact="gj")
+        C.cr_thomas_solve(diag, lower, upper, rhs, fact="lu")
     with pytest.raises(ValueError, match="lower"):
         C.cr_thomas_solve(diag, lower[:, :2], upper, rhs)
 

@@ -74,7 +74,7 @@ def test_cpu_import_builds_nothing():
     from mcp_tpu_torch.kernels import _build
     from mcp_tpu_torch.kernels.thomas import thomas_solve
 
-    before = thomas_solve.launches
+    before = dict(thomas_solve.launches)
     gen = torch.Generator().manual_seed(0)
     diag = torch.randn(2, 3, 4, 4, generator=gen) + 4 * torch.eye(4)
     lower = torch.randn(2, 2, 4, 4, generator=gen)
@@ -141,7 +141,7 @@ def test_cpu_banded_tiers_build_nothing():
     from mcp_tpu_torch.kernels.thomas import thomas_solve
     from mcp_tpu_torch.solver import BANDED_SOLVERS
 
-    before = (dict(cr_thomas_solve.launches), thomas_solve.launches)
+    before = (dict(cr_thomas_solve.launches), dict(thomas_solve.launches))
     s = flagships.masked_game_setup(2, 2, 3, device="cpu", dtype=torch.float64)
     for tier in BANDED_SOLVERS:
         for algorithm in ("ip", "mehrotra"):
@@ -212,7 +212,7 @@ def test_cpu_gradient_through_the_two_way_sweep_builds_nothing():
     from mcp_tpu_torch.kernels import _build
     from mcp_tpu_torch.kernels.thomas_babe import babe_thomas_solve
 
-    before = babe_thomas_solve.launches
+    before = dict(babe_thomas_solve.launches)
     s = flagships.masked_game_setup(2, 2, 20, device="cpu", dtype=torch.float64)
     th = s.thetas.clone().requires_grad_()
     res = solve_batch(s.mcp, th, x0=s.x0, options=SolverOptions(

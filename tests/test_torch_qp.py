@@ -274,7 +274,7 @@ def test_gj_tier_on_a_non_affine_mcp_warns():
         (dict(retry=1, retry_linear_solver="gmres"), "item 8"),
         (dict(verbose=True), "item 5"),
         (dict(matmul_precision="high"), "item 5"),
-        (dict(linear_solver="tridiag_pallas_crgj"), "K3"),
+        (dict(algorithm="hybrid", linear_solver="gmres"), "item 8"),
     ],
 )
 def test_unported_options_raise(override, match):

@@ -149,15 +149,14 @@ def test_warm_chain_streams_from_the_previous_solution():
     "override, item",
     [
         (dict(linear_solver="gmres"), "item 8"),
-        (dict(linear_solver="tridiag_pallas_crgj"), "K3"),
+        (dict(retry=1, retry_linear_solver="gmres"), "item 8"),
         (dict(matmul_precision="high"), "item 5"),
         (dict(verbose=True), "item 5"),
     ],
 )
 def test_unported_options_raise(override, item):
-    """The gmres tier is not ported; the banded factorizations other than
-    K1 and K3's qr/gjp/gjpr need the K3 facts gj/gjb*/gjbp* or K7; verbose
-    and reduced matmul precision are not ported."""
+    """The gmres tier is not ported, as the solve tier or the retry tier;
+    verbose and reduced matmul precision are not ported."""
     _, tm, thetas, _ = _setup()
     with pytest.raises(NotImplementedError, match=item):
         solve_batch(tm, torch.from_numpy(thetas[:1]), options=SolverOptions(**{**HEADLINE, **override}))

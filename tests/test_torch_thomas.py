@@ -60,7 +60,7 @@ def test_plain_matches_jax_thomas_f64(shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_wrapper_on_cpu_is_the_plain_version(shape):
     arrs = _torch(_bands(shape, np.float64, 3))
-    before = thomas_solve.launches
+    before = dict(thomas_solve.launches)
     torch.testing.assert_close(thomas_solve(*arrs), thomas_solve_plain(*arrs), rtol=0, atol=0)
     # Expanded (batch-stride 0) bands are accepted as the solver passes them.
     diag, lower, upper, rhs = arrs
