@@ -27,13 +27,21 @@ before it and read just after:
     two-way sweep K7a and cyclic reduction K3): the lane-change headline
     (2048 instances) on "tridiag_pallas_gjpr", one lane-change batch of 256
     on each of ten tiers, one N=4 flagship batch on each of four;
+  * the horizon-sharded SPIKE solve (its local slab solve the
+    multi-right-hand-side sweep K6) as ranks spawned on the one card over
+    gloo: the lane-change headline batch of 256 on a dp=1 x horizon=2 mesh
+    (2 ranks), the T=64 lane change in float64 on 4 ranks, the gradient
+    through SPIKE at T=16 and the batch-sharded solve on 2 ranks;
+  * the one-instance entry points on tier "schur_pallas" (``solve_game``
+    on the lane change, ``solve`` on the QP, float32; the single-system QR
+    K8a), and the compact-WY QR K8b beside K4b on the QP Schur systems;
 
 certifies each result with the true KKT residual, checks a few lanes
 against a float64 CPU reference, checks the training gradient against
 finite differences (float64) and against the CPU's float64 gradient, times
 each kernel (and each fact) beside its bound, its plain version and a
 library call, compares K3's refined facts gjpr, gjbpr and gjbprl in turns
-on the N=10 bands, profiles one batch of each path (the first outer iteration of the N=10
+on the N=10 bands, profiles one batch of each path (the first Newton steps of the N=10
 batch) and one train step, and
 prints as its last line
 
@@ -52,7 +60,10 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -114,9 +125,10 @@ N4_OPTIONS = dict(tol=1e-4, linear_solver="tridiag_auto", algorithm="hybrid",
 N10_OPTIONS = dict(tol=1e-4, linear_solver="tridiag_auto", algorithm="ip", polish=True)
 N4_MIN_SUCCESS, N10_MIN_SUCCESS = 0.9, 0.75
 # The N=10 batch runs for minutes (its failing lanes iterate to
-# max_outer_iters); its profile covers the first outer iteration (about 20
-# Newton steps and 220,000 kernel launches).
-N10_PROFILE_OUTER = 1
+# max_outer_iters); its profile covers the first N10_PROFILE_INNER Newton
+# steps of the first outer iteration and as many polish steps (the whole
+# first outer iteration took about 100 s of the script's time limit).
+N10_PROFILE_OUTER, N10_PROFILE_INNER = 1, 5
 # K3 against its plain version: max|kernel − plain| / max|plain|. The
 # Gauss–Jordan elimination rounds as the plain version; the head
 # contraction, refinement and level products sum in another order, which
@@ -622,12 +634,12 @@ def backward_error(A, b, x):
 
 def dense_check(name, fn, plain, A, b):
     """Kernel against plain on (A, b), with GJ_TOL for the Gauss–Jordan
-    kernels; the QR kernel is held to QR_TOL (condition-scaled) and to
-    QR_BWD_TOL (backward error, condition-free). Returns the max absolute
-    difference."""
+    kernels; the QR kernels (K4b/K4c, K8a, K8b) are held to QR_TOL
+    (condition-scaled) and to QR_BWD_TOL (backward error, condition-free).
+    Returns the max absolute difference."""
     import torch
 
-    from mcp_tpu_torch.kernels.linear_solve import gauss_solve
+    from mcp_tpu_torch.kernels.linear_solve import gauss_solve, pallas_gauss_solve, wy_solve
 
     got = fn(A, b)
     torch.cuda.synchronize()
@@ -638,7 +650,8 @@ def dense_check(name, fn, plain, A, b):
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     bwd_k, bwd_p = backward_error(A, b, got[0]), backward_error(A, b, want[0])
     tag = str(A.dtype)[6:]
-    if fn is gauss_solve:
+    qr = fn in (gauss_solve, pallas_gauss_solve, wy_solve)
+    if qr:
         kappa = torch.linalg.cond(A.double())
         per = (got[0] - want[0]).abs().amax(dim=1) / want[0].abs().amax(dim=1).clamp(min=1e-30)
         measure, tol = float((per.double() / kappa).max()), QR_TOL[tag]
@@ -648,10 +661,10 @@ def dense_check(name, fn, plain, A, b):
         what = f"max|kernel-plain|/max|plain|={rel:.3e}"
     log(f"  {name}: {what} (tol {tol:g}); unscaled {rel:.3e}; backward error kernel "
         f"{bwd_k:.3e} plain {bwd_p:.3e}"
-        + (f" (tol {QR_BWD_TOL[tag]:.3e})" if fn is gauss_solve else ""))
+        + (f" (tol {QR_BWD_TOL[tag]:.3e})" if qr else ""))
     check(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: non-finite kernel output")
     check(measure <= tol, f"{name}: kernel and plain differ by {measure:.3e} > {tol:g}")
-    if fn is gauss_solve:
+    if qr:
         check(bwd_k <= QR_BWD_TOL[tag],
               f"{name}: kernel backward error {bwd_k:.3e} > {QR_BWD_TOL[tag]:.3e}")
     return err
@@ -1448,11 +1461,11 @@ def ift_watch():
     real = diff._band_solve
     rec = {"args": None, "launches": 0}
 
-    def solve(tier, *args):
+    def solve(tier, *args, **kw):
         if rec["args"] is None:
             rec["args"] = args
         before = total(babe_thomas_solve.launches)
-        out = real(tier, *args)
+        out = real(tier, *args, **kw)
         rec["launches"] += total(babe_thomas_solve.launches) - before
         return out
 
@@ -1949,6 +1962,505 @@ def phase_fact_timing(bands, errs, launches, device):
     return kernels
 
 
+# -- K6 and the horizon-sharded paths; K8a and K8b --------------------------
+
+# K6 (the SPIKE local slab solve) against its plain version at the paths'
+# shapes: the lane change at D=2 (256, 5, 20, 41), the T=64 lane change at
+# D=4 (1, 16, 20, 41) and the N=4 flagship at D=2 (8, 15, 40, 81; 3b+k = 201,
+# beyond the TPU kernel's 128 lanes), each from its first Newton step's
+# bands. K1's rule: max|kernel − plain| relative to max|x|, and each system
+# column's backward error ≤ 100 ε or ≤ 2x the plain version's (K3's rule).
+K6_TOL = {"float32": K1_REAL_TOL, "float64": K1_F64_TOL}
+# The horizon-sharded paths run as spawned ranks sharing the one card, over
+# gloo (NCCL takes one rank per card); a rank that leaves a collective early
+# fails the phase at this timeout instead of hanging it.
+RANK_TIMEOUT_S = 300
+HZ_B, HZ_WARM = 256, 8  # the horizon batch (dp=1 x horizon=2) and its warm batch
+# The JAX package's test θ draws (tests/test_horizon.py: PRNGKey(2) at T=64
+# on the 300 m road, PRNGKey(2) and PRNGKey(0) at T=16), so that the card
+# solves the instances the reference's own tests solve.
+T64_THETA = [1.6699366253484025, 148.45578766222522, 1.275062898755385, 1.4661674954323232,
+             1.0, 1.0077820186700563, 90.65005739850648, 1.1835583513139207,
+             1.001878194856054, 3.0]
+T16_THETAS = [
+    [1.6699366253484025, 24.75126781136514, 1.275062898755385, 1.4661674954323232, 1.0,
+     1.0077820186700563, 15.440277701772855, 1.1835583513139207, 1.001878194856054, 3.0],
+    [3.4098439939696665, 2.934984799943585, 1.303844511163124, 1.7590903835528438, 1.0,
+     1.4455455796509067, 23.174772053473937, 0.42640361952699735, 0.9598141891229717, 3.0],
+]
+# The T=64 solve on 4 ranks is held to the same SPIKE algebra run in one
+# process on the card (the same kernels, no exchange): the same outer
+# iterations, x to T64_X_REL of max|x| (float64 rounding of the gathers'
+# order of assembly only). It is also held to an independent solver, the
+# single-card cyclic-reduction tier (K3, qr): the same outer iterations and
+# x to T64_CR_REL of max|x|. At T=64 and tol 1e-4 rounding fixes x only to
+# ~3e-4 of max|x| (~161): a 1-ulp perturbation of θ moves the 4-slab SPIKE
+# solution by 0.017–0.048 on the CPU in float64, and the tiers of either
+# package differ from one another by up to 0.056.
+T64_X_REL = 1e-9
+T64_CR_REL = 5e-4
+GRAD_RTOL = 1e-6  # float64 IFT gradients through SPIKE vs one card
+SINGLE_N = 4  # one-instance solves per problem (K8a)
+
+
+def spike_slab(bands, d, D):
+    """The K6 operands (diag, lower, upper, R) of slab d of D of the batched
+    bands (diag, lower, upper, rhs), as the SPIKE stage builds them."""
+    from mcp_tpu_torch.parallel import horizon as H
+
+    diag, lower, upper, rhs = bands
+    B = diag.shape[0]
+    lower, upper = (a.expand(B, *a.shape[1:]) for a in (lower, upper))
+    return H.spike_local_operands(*H._slab(diag, lower, upper, rhs, d, D))
+
+
+def fold_columns(args, X):
+    """A multi-right-hand-side system and solution as k single-column
+    systems per lane (K1's layout), for ``block_backward_error``."""
+    diag, lower, upper, R = args
+    B, T, b, k = R.shape
+    rep = lambda a: a[:, None].expand(B, k, *a.shape[1:]).reshape(B * k, *a.shape[1:])
+    cols = lambda a: a.permute(0, 3, 1, 2).reshape(B * k, T, b)
+    return (rep(diag), rep(lower), rep(upper), cols(R)), cols(X)
+
+
+def multi_check(label, args):
+    """K6 against its plain version (``K6_TOL`` relative to max|x|, and the
+    backward error of each lane and column: ≤ 100 ε or ≤ 2x the plain
+    version's). Returns the max absolute difference."""
+    import torch
+
+    from mcp_tpu_torch.kernels.thomas_multi import thomas_solve_multi, thomas_solve_multi_plain
+
+    xk = thomas_solve_multi(*args)
+    torch.cuda.synchronize()
+    xp = thomas_solve_multi_plain(*args)
+    tag = str(args[0].dtype)[6:]
+    err = float((xk - xp).abs().max())
+    rel = err / max(float(xp.abs().max()), 1e-30)
+    fa, fk = fold_columns(args, xk)
+    _, fp = fold_columns(args, xp)
+    # Columns whose right side is 0 (W_L of the first slab, W_R of the last)
+    # must give x = 0; the backward error is taken over the others.
+    live = fa[3].flatten(1).abs().amax(dim=1) > 0
+    check(not bool(fk[~live].any()), f"K6 {label}: nonzero x for a zero right side")
+    fa = tuple(a[live] for a in fa)
+    bk, bp = block_backward_error(*fa, fk[live]), block_backward_error(*fa, fp[live])
+    over = int((bk > torch.clamp(2 * bp, min=K3_BWD_TOL[tag])).sum())
+    log(f"  K6 {label} {tag} {tuple(args[3].shape)}: max|kernel-plain|/max|x|={rel:.3e} "
+        f"(tol {K6_TOL[tag]:g}); backward error kernel {float(bk.max()):.3e} plain "
+        f"{float(bp.max()):.3e} (tol {K3_BWD_TOL[tag]:.3e} or 2x plain; over: {over})")
+    check(bool(torch.isfinite(xk).all()), f"K6 {label}: non-finite kernel output")
+    check(rel <= K6_TOL[tag], f"K6 {label}: kernel and plain differ by {rel:.3e}")
+    check(over == 0, f"K6 {label}: kernel backward error {float(bk.max()):.3e}")
+    return err
+
+
+def t64_problem(device, dtype):
+    """The T=64 lane change on the 300 m road, its θ and its zero-input
+    cold start (the JAX package's tests/test_horizon.py:71-113)."""
+    import torch
+
+    from mcp_tpu_torch.bench import lane_change as lc
+    from mcp_tpu_torch.trajectories.strategies import cold_start_primal
+
+    bench = lc.generate_test_problem(horizon=64, height=300.0, device=device)
+    theta = torch.tensor(T64_THETA, dtype=dtype, device=device)
+    x0 = cold_start_primal(bench.game, bench.parametric_game, 64,
+                           torch.cat([theta[0:4], theta[5:9]]))
+    return bench.parametric_game.mcp, theta, x0
+
+
+def phase_k6(real_bands, n4, device):
+    """K6 against its plain version at the three SPIKE shapes in float32 and
+    float64, and a zero pivot. Returns (the lane-change f32 operands, the max
+    abs error there)."""
+    import torch
+
+    from mcp_tpu_torch.kernels.thomas_multi import thomas_solve_multi, thomas_solve_multi_plain
+
+    f32, f64 = torch.float32, torch.float64
+    mcp64, th64, x64 = t64_problem(device, f64)
+    shapes = {
+        "lane change D=2": lambda dt: spike_slab(
+            tuple(a.to(dt) for a in real_bands), 0, 2),
+        "T=64 lane change D=4": lambda dt: spike_slab(
+            first_newton_bands(mcp64, th64[None].to(dt), x64[None]), 1, 4),
+        "N=4 flagship D=2": lambda dt: spike_slab(
+            first_newton_bands(n4.mcp, n4.thetas.to(dt), n4.x0), 1, 2),
+    }
+    lane_args, err = None, None
+    for name, make in shapes.items():
+        for dt in (f32, f64):
+            args = make(dt)
+            e = multi_check(name, args)
+            if name == "lane change D=2" and dt == f32:
+                lane_args, err = args, e
+    # A zero pivot gives non-finite x in both versions, on that system only.
+    diag, lower, upper, rhs = random_bands((4, 5, 20), f32, device, 7)
+    R = torch.randn((4, 5, 20, 41), generator=torch.Generator().manual_seed(8)).to(device)
+    diag[2, 0] = 0.0
+    xk = thomas_solve_multi(diag, lower, upper, R)
+    xp = thomas_solve_multi_plain(diag, lower, upper, R)
+    torch.cuda.synchronize()
+    bad_k = (~torch.isfinite(xk).flatten(1).all(dim=1)).tolist()
+    bad_p = (~torch.isfinite(xp).flatten(1).all(dim=1)).tolist()
+    log(f"  K6 zero pivot: non-finite systems kernel={bad_k} plain={bad_p}")
+    check(bad_k == bad_p == [False, False, True, False], "K6 zero pivot")
+    return lane_args, err
+
+
+def rank_dir(name):
+    """A fresh directory for one spawn's rendezvous and results, under the
+    checkout's build/ (which git ignores)."""
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ranks"
+    root.mkdir(parents=True, exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"{name}-", dir=root)
+
+
+def phase_horizon_paths(device, out_dir):
+    """Two ranks sharing the card, spawned once: the lane-change headline
+    (T=10, B=256, float32) through solve_batch_horizon_sharded on a dp=1 x
+    horizon=2 mesh; the gradient of Σx² through horizon_sharded_solve_fn at
+    T=16 (two lanes, float64); solve_batch_sharded of 16 lane-change lanes.
+    Each is held against the same solve on one card in this process."""
+    import torch
+
+    from mcp_tpu_torch import SOLVED, SolverOptions, auto_tightening_rate, solve_batch
+    from mcp_tpu_torch.bench import horizon as worker
+    from mcp_tpu_torch.bench import lane_change as lc
+    from mcp_tpu_torch.bench.harness import true_kkt_errors
+
+    bench = lc.generate_test_problem(horizon=10, device=device)
+    mcp = bench.parametric_game.mcp
+    options = dict(HEADLINE, tightening_rate=auto_tightening_rate(mcp))
+    gen = torch.Generator().manual_seed(2032)
+    thetas = lc.generate_parameter_batch(gen, HZ_B, bench, dtype=torch.float32, device=device)
+    grad_opts = dict(linear_solver="tridiag", sensitivity_solver="tridiag", tol=1e-6)
+    t16 = np.asarray(T16_THETAS)
+    tasks = [
+        dict(kind="batch", name="batch", thetas=thetas.cpu().numpy(), options=options,
+             horizon=10, dp=1, hz=2, warm=HZ_WARM),
+        dict(kind="grad", name="grad", thetas=t16, options=grad_opts, horizon=16),
+        dict(kind="batch_sharded", name="batch_sharded", thetas=thetas[:16].cpu().numpy(),
+             options=options, horizon=10),
+    ]
+    t0 = time.perf_counter()
+    ranks = worker.spawn(2, tasks, out_dir, device=device, threads=2,
+                         timeout_s=RANK_TIMEOUT_S)
+    log(f"  2 ranks ran in {time.perf_counter() - t0:.1f} s")
+    for name in ("batch", "grad", "batch_sharded"):
+        for k, v in ranks[0][name].items():
+            if isinstance(v, np.ndarray):
+                check(np.array_equal(ranks[1][name][k], v, equal_nan=True),
+                      f"horizon {name}: ranks differ in {k}")
+
+    # The horizon batch.
+    got = ranks[0]["batch"]
+    status = torch.from_numpy(got["status"]).to(device)
+    solved = status == SOLVED
+    res = SimpleNamespace(**{k: torch.from_numpy(got[k]).to(device) for k in ("x", "y", "s")})
+    tk = true_kkt_errors(mcp, res, thetas)
+    certified = int((solved & (tk <= options["tol"])).sum())
+    one = solve_batch(mcp, thetas, options=SolverOptions(**options))
+    torch.cuda.synchronize()
+    differ = (one.status != status).nonzero().flatten().tolist()
+    launches = [r["batch"]["launches"] for r in ranks]
+    success = float(solved.double().mean())
+    stats = dict(success_rate=success, certified=certified,
+                 certified_solves_per_s=certified / got["seconds"], window_s=got["seconds"],
+                 median_outer_iters=float(np.median(got["outer_iters"])),
+                 single_card_success=float((one.status == SOLVED).double().mean()),
+                 lanes_whose_status_differs_from_one_card=differ,
+                 launches_per_rank=launches)
+    log("  horizon batch (dp=1 x horizon=2, tridiag_pallas): " + json.dumps(stats))
+    check(all(l["multi"] > 0 for l in launches), "horizon batch: K6 not launched in a rank")
+    check(all(l["linesearch"] > 0 for l in launches), "horizon batch: K2 not launched")
+    check(all(l["thomas"] == l["babe"] == l["cr"] == 0 for l in launches),
+          "horizon batch: K1, K7a or K3 launched")
+    check(success >= 0.99, f"horizon batch: success {success} < 0.99")
+    check(not bool((solved & (tk > options["tol"])).any()),
+          "horizon batch: a SOLVED lane has true KKT above tol")
+
+    # The gradient through SPIKE against one card.
+    g = ranks[0]["grad"]
+    th = torch.tensor(t16, dtype=torch.float64, device=device).requires_grad_()
+    mcp16 = lc.generate_test_problem(horizon=16, device=device).parametric_game.mcp
+    ref = solve_batch(mcp16, th, options=SolverOptions(**grad_opts))
+    (g_one,) = torch.autograd.grad((ref.x ** 2).sum(), th)
+    g_one = g_one.cpu().numpy()
+    rel = float(np.abs(g["grad"] - g_one).max() / np.abs(g_one).max())
+    log(f"  SPIKE gradient (2 ranks, T=16, 2 lanes, float64): status {g['status'].tolist()} "
+        f"(one card {ref.status.tolist()}), max|g - g_one|/max|g_one|={rel:.3e} (rtol "
+        f"{GRAD_RTOL:g}); K6 launches forward {g['launches']['multi']}, backward "
+        f"{g['backward_launches']['multi']}")
+    check((g["status"] == SOLVED).all(), "SPIKE gradient: a lane did not solve")
+    check(np.allclose(g["grad"], g_one, rtol=GRAD_RTOL, atol=1e-8 * np.abs(g_one).max()),
+          f"SPIKE gradient differs from one card by {rel:.3e}")
+    check(g["backward_launches"]["multi"] > 0, "SPIKE gradient: K6 not launched in backward")
+
+    # Batch sharding.
+    bs = ranks[0]["batch_sharded"]
+    st_one = one.status[:16].cpu().numpy()
+    log(f"  solve_batch_sharded (2 ranks, 16 lanes): status {bs['status'].tolist()} vs one "
+        f"card {st_one.tolist()}, num_solved {bs['num_solved']}")
+    check(np.array_equal(bs["status"], st_one), "solve_batch_sharded: status differs")
+    check(bs["num_solved"] == int((bs["status"] == SOLVED).sum()),
+          "solve_batch_sharded: wrong solved count")
+    return launches[0]["multi"]
+
+
+def phase_long_horizon(device, out_dir):
+    """The T=64 lane change, one instance in float64, solve_horizon_sharded
+    on 4 ranks sharing the card with the JAX test's options (tier "tridiag",
+    tol 1e-4, no polish, so the true KKT is reported, not held): SOLVED,
+    the same outer iterations and x as the SPIKE algebra in one process on
+    the card (T64_X_REL), and as the independent tier tridiag_pallas_cr (K3)
+    on one card (T64_CR_REL)."""
+    import functools
+
+    import torch
+
+    from mcp_tpu_torch import SOLVED, SolverOptions, solve
+    from mcp_tpu_torch.bench import horizon as worker
+    from mcp_tpu_torch.bench.harness import true_kkt_errors
+    from mcp_tpu_torch.diff import _solve_ts
+    from mcp_tpu_torch.parallel import horizon as H
+    from mcp_tpu_torch.solver import default_initialization
+
+    mcp, theta, x0 = t64_problem(device, torch.float64)
+    opts = dict(linear_solver="tridiag", tol=1e-4)
+    t0 = time.perf_counter()
+    # The references run in this process while the ranks run (nothing here
+    # is timed).
+    job = worker.start(4, [dict(kind="solve", name="t64", theta=theta.cpu().numpy(),
+                                x0=x0.cpu().numpy(), options=opts, horizon=64, height=300.0)],
+                       out_dir, device=device, threads=2, timeout_s=RANK_TIMEOUT_S)
+    one = _solve_ts(mcp, SolverOptions(**opts), functools.partial(H.spike_solve, num_slabs=4),
+                    None, theta[None], *default_initialization(mcp, theta[None], x0[None]))
+    cr = solve(mcp, theta, x0=x0, linear_solver="tridiag_pallas_cr", tol=1e-4)
+    torch.cuda.synchronize()
+    ranks = job()
+    got = ranks[0]["t64"]
+    x = torch.from_numpy(got["x"]).to(device)
+    tk = float(true_kkt_errors(mcp, SimpleNamespace(
+        **{k: torch.from_numpy(got[k]).to(device)[None] for k in ("x", "y", "s")}),
+        theta[None])[0])
+    rel = float((x - one.x[0]).abs().max() / one.x[0].abs().max())
+    dx_cr = float((x - cr.x).abs().max())
+    rel_cr = dx_cr / float(cr.x.abs().max())
+    log(f"  T=64 on 4 ranks ({time.perf_counter() - t0:.1f} s): status {int(got['status'])} "
+        f"in {int(got['outer_iters'])} outer iterations, true KKT {tk:.3e}; SPIKE in one "
+        f"process: {int(one.status[0])} in {int(one.outer_iters[0])}, max|dx|/max|x|="
+        f"{rel:.3e} (tol {T64_X_REL:g}); tridiag_pallas_cr (K3 qr) on one card: "
+        f"{int(cr.status)} in {int(cr.outer_iters)}, max|dx|={dx_cr:.3e} of max|x| "
+        f"{float(cr.x.abs().max()):.1f} (tol {T64_CR_REL:g} of max|x|); K6 launches per rank "
+        f"{[r['t64']['launches']['multi'] for r in ranks]}")
+    for r in ranks[1:]:
+        check(np.array_equal(r["t64"]["x"], got["x"]), "T=64: ranks differ")
+    check(int(got["status"]) == SOLVED, "T=64: not SOLVED")
+    check(int(got["outer_iters"]) == int(one.outer_iters[0]), "T=64: outer iterations differ")
+    check(rel <= T64_X_REL, f"T=64: x differs by {rel:.3e}")
+    check(int(cr.status) == SOLVED, "T=64: tridiag_pallas_cr did not solve")
+    check(int(cr.outer_iters) == int(got["outer_iters"]),
+          "T=64: outer iterations differ from tridiag_pallas_cr")
+    check(rel_cr <= T64_CR_REL, f"T=64: x differs from tridiag_pallas_cr by {rel_cr:.3e}")
+    check(all(r["t64"]["launches"]["multi"] > 0 for r in ranks), "T=64: K6 not launched")
+
+
+def phase_single(device, schur):
+    """The one-instance entry points on tier "schur_pallas": SINGLE_N
+    lane-change θ through solve_game and SINGLE_N QP θ through solve, one at
+    a time, float32, with K8a's and K4b's counts set to 0 just before and
+    read just after; statuses against the CPU's float64 plain run on the
+    same θ; then K8a against its plain version at both problems' Schur
+    systems. Returns (K8a launches, the lane-change f32 Schur system, the
+    max abs error there)."""
+    import torch
+
+    from mcp_tpu_torch import auto_tightening_rate, solve, solve_game
+    from mcp_tpu_torch.bench import lane_change as lc
+    from mcp_tpu_torch.bench import qp
+    from mcp_tpu_torch.kernels import linear_solve as L
+    from mcp_tpu_torch.linalg import _schur_system
+    from mcp_tpu_torch.solver import _make_linearizer
+
+    games = {d: lc.generate_test_problem(horizon=10, device=d) for d in (device, "cpu")}
+    qps = {d: qp.generate_test_problem(num_primals=QP_N, num_inequalities=QP_N, device=d)
+           for d in (device, "cpu")}
+    lane_opts = dict(HEADLINE, linear_solver="schur_pallas",
+                     tightening_rate=auto_tightening_rate(games["cpu"].parametric_game.mcp))
+    qp_opts = dict(QP_OPTIONS, linear_solver="schur_pallas")
+    gen = torch.Generator().manual_seed(2033)
+    lane_th = lc.generate_parameter_batch(gen, SINGLE_N, games["cpu"], dtype=torch.float64,
+                                          device="cpu")
+    qp_th = qp.generate_parameter_batch(gen, SINGLE_N, num_primals=QP_N,
+                                        num_inequalities=QP_N, dtype=torch.float64,
+                                        device="cpu")
+    L.pallas_gauss_solve.launches = L.gauss_solve.launches = 0
+    t0 = time.perf_counter()  # the one-instance window
+    card = {"lane": [], "qp": []}
+    for th in lane_th:
+        card["lane"].append(solve_game(games[device].parametric_game,
+                                       th.to(device=device, dtype=torch.float32), **lane_opts))
+    for th in qp_th:
+        card["qp"].append(solve(qps[device].mcp, th.to(device=device, dtype=torch.float32),
+                                **qp_opts))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, k4b = L.pallas_gauss_solve.launches, L.gauss_solve.launches
+    ref = {"lane": [solve_game(games["cpu"].parametric_game, th, **lane_opts) for th in lane_th],
+           "qp": [solve(qps["cpu"].mcp, th, **qp_opts) for th in qp_th]}
+    for key in ("lane", "qp"):
+        st_card = [int(r.status) for r in card[key]]
+        st_ref = [int(r.status) for r in ref[key]]
+        it_card = [int(r.outer_iters) for r in card[key]]
+        log(f"  one-instance {key} (schur_pallas, f32 card vs f64 CPU): status {st_card} vs "
+            f"{st_ref}, outer iterations {it_card}")
+        check(st_card == st_ref, f"one-instance {key}: status differs from the CPU's")
+    log(f"  {2 * SINGLE_N} one-instance solves in {wall:.2f} s: K8a launches {launches}, "
+        f"K4b {k4b}")
+    check(launches > 0 and k4b == 0, "one-instance path: K8a not launched, or K4b launched")
+
+    # K8a against its plain version at both Schur systems (cold start).
+    mcp = games[device].parametric_game.mcp
+    th = lane_th[:1].to(device=device, dtype=torch.float32)
+    n, m = mcp.unconstrained_dimension, mcp.constrained_dimension
+    zeros = torch.zeros((1, n), dtype=torch.float32, device=device)
+    ones = torch.ones((1, m), dtype=torch.float32, device=device)
+    g, h, Gx, Gy, Hx, _ = _make_linearizer(mcp, th, torch.float32)(zeros, ones)
+    lane_A, lane_b, *_ = _schur_system(Gx, Gy, Hx, ones, ones, g, h - ones, ones - 1.0,
+                                       HEADLINE["tol"])
+    k8a = ("pallas_gauss_solve", L.pallas_gauss_solve, L.qr_solve_sep_plain)
+    err = dense_check(f"{k8a[0]} lane-change Schur system (1,200) float32", *k8a[1:],
+                      lane_A, lane_b)
+    for dt in (torch.float32, torch.float64):
+        dense_check(f"{k8a[0]} QP Schur system (1,100) {str(dt)[6:]}", *k8a[1:],
+                    schur[0][:1].to(dt).contiguous(), schur[1][:1].to(dt).contiguous())
+    return launches, (lane_A, lane_b), err
+
+
+def phase_wy(schur):
+    """K8b's path (the JAX package's scripts/profile_qp_phases.py question):
+    the cold-start QP Schur systems (B=256, n=100, padded to 104) solved by
+    K8b beside K4b, with K8b's count set to 0 just before and read just
+    after; then K8b against its plain version in float32 and float64.
+    Returns (K8b launches, max abs error against the plain version)."""
+    import torch
+
+    from mcp_tpu_torch.kernels import linear_solve as L
+
+    A, b = schur
+    L.wy_solve.launches = 0
+    x_wy = L.wy_solve(A, b)
+    torch.cuda.synchronize()
+    launches = L.wy_solve.launches
+    x_qr = L.gauss_solve(A, b)
+    torch.cuda.synchronize()
+    bwd_wy, bwd_qr = backward_error(A, b, x_wy), backward_error(A, b, x_qr)
+    rel = float((x_wy - x_qr).abs().max() / x_qr.abs().max())
+    log(f"  K8b vs K4b on the QP Schur systems {tuple(A.shape)} f32: backward error K8b "
+        f"{bwd_wy:.3e}, K4b {bwd_qr:.3e}; max|x_K8b - x_K4b|/max|x|={rel:.3e}")
+    check(bwd_wy <= QR_BWD_TOL["float32"], f"K8b: backward error {bwd_wy:.3e}")
+    err = dense_check("wy_solve QP Schur (256,100) float32", L.wy_solve, L.wy_solve_plain, A, b)
+    dense_check("wy_solve QP Schur (256,100) float64", L.wy_solve, L.wy_solve_plain,
+                A.double(), b.double())
+    return launches, err
+
+
+def multi_counts(Bn, T, b, k, shared_bands, itemsize=4):
+    """(bytes, flops) of one K6 solve: diag, the bands and R read once, x
+    written once; per step the QR of b × (2b+k) (``aug_flops``), L·[C | d]
+    (steps t ≥ 1) and the back substitution on k columns."""
+    band = (T - 1) * b * b * itemsize * (1 if shared_bands else Bn)
+    nbytes = Bn * T * b * b * itemsize + 2 * band + 2 * Bn * T * b * k * itemsize
+    flops = Bn * (T * (aug_flops(b, b + k, "qr") + 2 * b * b * k)
+                  + (T - 1) * 2 * b * b * (b + k))
+    return nbytes, flops
+
+
+def sep_counts(Bn, n, itemsize=4):
+    """(bytes, flops) of one K8a solve: A and b read once, x written once;
+    per reflection over the j = n − k trailing rows the norm, u·u, uᵀA and
+    u·b, the rank-1 updates of A and b (4j² + 8j), then the back
+    substitution."""
+    per = sum(4 * j * j + 8 * j for j in range(1, n + 1)) + n * (n + 1)
+    return Bn * (n * n + 2 * n) * itemsize, Bn * per
+
+
+def wy_counts(Bn, n, nb=8, itemsize=4):
+    """(bytes, flops) of one K8b solve at the padded n: A and b read once, x
+    written once; per panel the nb reflections confined to the panel (norm,
+    u·u, uᵀP, Uᵀu, the panel update, larft's column of T), the products
+    Uᵀ[A | b], Tᵀ(·) and the update U(·) over the trailing rows and the
+    columns right of the panel (b included; the panel's own columns are R
+    once its reflections are done), then the back substitution."""
+    flops = 0
+    for j0 in range(0, n, nb):
+        for k in range(nb):
+            r = n - j0 - k
+            flops += 4 * r + 4 * r * (nb - k) + 2 * r * k + 2 * k * k
+        cols, rows = n + 1 - j0 - nb, n - j0
+        flops += 2 * nb * rows * cols + 2 * nb * nb * cols + 2 * nb * rows * cols
+    flops += n * (n + 1)
+    return Bn * (n * n + 2 * n) * itemsize, Bn * flops
+
+
+def phase_new_timing(k6, k8a, k8b):
+    """K6, K8a and K8b at their paths' shapes beside their bounds, their
+    plain versions and one batched torch.linalg.solve of the same function
+    (never called by the port)."""
+    import torch
+
+    from mcp_tpu_torch.kernels import linear_solve as L
+    from mcp_tpu_torch.kernels.thomas_multi import thomas_solve_multi, thomas_solve_multi_plain
+
+    kernels = []
+    args, err, launches = k6
+    Bn, T, b, k = args[3].shape
+    A, _ = dense_block_system(*args[:3], args[3][..., 0])
+    R = args[3].reshape(Bn, T * b, k).contiguous()
+    nbytes, flops = multi_counts(Bn, T, b, k, args[1].stride(0) == 0)
+    b_ms, b_by = bound(nbytes, flops)
+    kernels.append({
+        "name": "thomas_solve_multi", "route": "cuda",
+        "source": "mcp_tpu_torch/kernels/csrc/thomas_multi.cu",
+        "replaces": "mcp_tpu/kernels/thomas_pallas.py:572", "launches": launches,
+        "max_abs_err": err, "ms": cuda_ms(lambda: thomas_solve_multi(*args), 50),
+        "plain_ms": cuda_ms(lambda: thomas_solve_multi_plain(*args), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.linalg.solve(A, R), 10)})
+    (A, b), err, launches = k8a
+    nbytes, flops = sep_counts(A.shape[0], A.shape[1])
+    b_ms, b_by = bound(nbytes, flops)
+    kernels.append({
+        "name": "pallas_gauss_solve", "route": "cuda",
+        "source": "mcp_tpu_torch/kernels/csrc/qr_sep.cu",
+        "replaces": "mcp_tpu/kernels/linear_solve.py:38", "launches": launches,
+        "max_abs_err": err, "ms": cuda_ms(lambda: L.pallas_gauss_solve(A, b), 50),
+        "plain_ms": cuda_ms(lambda: L.qr_solve_sep_plain(A, b), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.linalg.solve(A, b[..., None]), 20)})
+    (A, b), err, launches = k8b
+    nbytes, flops = wy_counts(A.shape[0], -(-A.shape[1] // 8) * 8)
+    b_ms, b_by = bound(nbytes, flops)
+    kernels.append({
+        "name": "wy_solve", "route": "cuda", "source": "mcp_tpu_torch/kernels/csrc/wy_qr.cu",
+        "replaces": "mcp_tpu/kernels/linear_solve.py:103", "launches": launches,
+        "max_abs_err": err, "ms": cuda_ms(lambda: L.wy_solve(A, b), 50),
+        "plain_ms": cuda_ms(lambda: L.wy_solve_plain(A, b), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.linalg.solve(A, b[..., None]), 20)})
+    k4b = cuda_ms(lambda: L.gauss_solve(A, b), 50)
+    for e in kernels:
+        log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.3f} ms, bound "
+            f"{e['bound_ms']:.5f} ms by {e['bound_by']}, library {e['library_ms']:.4f} ms); "
+            f"launches {e['launches']} in its path's window")
+    log(f"  K4b (gauss_solve) on the same QP Schur systems: {k4b:.4f} ms against K8b "
+        f"{kernels[-1]['ms']:.4f} ms")
+    return kernels
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2019,9 +2531,9 @@ def main() -> int:
                                n10_stats["launches"]["cr"]["gjpr"])
     phase("18: profile of one N=4 flagship batch")
     phase_profile(n4.mcp, n4_options, n4_stack[0], x0=n4.x0)
-    phase(f"19: profile of the N=10 flagship batch's first {N10_PROFILE_OUTER} outer "
-          "iteration(s)")
-    phase_profile(n10.mcp, dataclasses.replace(n10_options, max_outer_iters=N10_PROFILE_OUTER),
+    phase(f"19: profile of the N=10 flagship batch's first {N10_PROFILE_INNER} Newton steps")
+    phase_profile(n10.mcp, dataclasses.replace(n10_options, max_outer_iters=N10_PROFILE_OUTER,
+                                               max_inner_iters=N10_PROFILE_INNER),
                   n10.thetas, x0=n10.x0)
     phase("20: K7a (two-way sweep), and K1 on the padded route, vs plain")
     k7a_bands, k7a_err = phase_k7a(n4, device)
@@ -2049,6 +2561,21 @@ def main() -> int:
     fact_launches.update(phase_path_c(n4))
     phase("29: fact timing and the N=10 A/B")
     kernels += phase_fact_timing(fact_bands, fact_errs, fact_launches, device)
+    phase("30: K6 (multi-right-hand-side sweep) vs plain")
+    k6_args, k6_err = phase_k6(real_bands, n4, device)
+    phase(f"31: horizon-sharded lane change on 2 ranks (dp=1 x horizon=2, B={HZ_B}), the "
+          "SPIKE gradient and batch sharding")
+    k6_launches = phase_horizon_paths(device, rank_dir("horizon2"))
+    phase("32: T=64 lane change, one instance, on 4 ranks (float64)")
+    phase_long_horizon(device, rank_dir("horizon4"))
+    phase("33: one-instance solves on schur_pallas (K8a)")
+    k8a_launches, k8a_system, k8a_err = phase_single(device, schur)
+    phase("34: K8b (compact WY) beside K4b on the QP Schur systems")
+    k8b_launches, k8b_err = phase_wy(schur)
+    phase("35: K6, K8a, K8b timing")
+    kernels += phase_new_timing((k6_args, k6_err, k6_launches),
+                                (k8a_system, k8a_err, k8a_launches),
+                                (schur, k8b_err, k8b_launches))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

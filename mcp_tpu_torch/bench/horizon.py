@@ -1,0 +1,208 @@
+"""Rank worker of the horizon-sharded and batch-sharded solves.
+
+``spawn(world, tasks, out_dir)`` (or ``start``, which returns before the
+ranks end) starts ``world`` ranks with
+``torch.multiprocessing.spawn`` (the start method a card needs), joins them
+in one process group over a file rendezvous in ``out_dir`` and runs the same
+list of tasks on every rank; each rank saves its results, numpy arrays and
+the kernel launch counts of each task's window, and ``spawn`` returns them
+in rank order. A task is a dict: ``kind`` (a key of ``TASKS``), ``name`` and
+the keyword arguments of that kind. The lane-change problem is built in each
+rank (``bench/lane_change.py``); θ and warm starts come as numpy arrays.
+
+Ranks that share one card all compute on it and exchange over gloo. Kernel
+libraries are looked up by content hash (``kernels/_build.py``): build them
+in the parent first, so that no rank compiles.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import SolverOptions
+from ..kernels.cyclic_reduction import cr_thomas_solve
+from ..kernels.linesearch import linesearch_update
+from ..kernels.thomas import thomas_solve
+from ..kernels.thomas_babe import babe_thomas_solve
+from ..kernels.thomas_multi import thomas_solve_multi
+
+#: The banded kernel wrappers whose launches a task reports, by short name.
+WRAPPERS = {"multi": thomas_solve_multi, "thomas": thomas_solve, "babe": babe_thomas_solve,
+            "cr": cr_thomas_solve, "linesearch": linesearch_update}
+
+
+def _reset():
+    for w in WRAPPERS.values():
+        w.launches = dict.fromkeys(w.launches, 0) if isinstance(w.launches, dict) else 0
+
+
+def _counts() -> dict:
+    return {k: sum(w.launches.values()) if isinstance(w.launches, dict) else w.launches
+            for k, w in WRAPPERS.items()}
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _problem(horizon: int, height: float, device):
+    from . import lane_change as lc
+
+    return lc.generate_test_problem(horizon=horizon, height=height, device=device)
+
+
+def _numpy(res) -> dict:
+    return {f: getattr(res, f).detach().cpu().numpy() for f in res._fields}
+
+
+def _tensor(a, device, dtype):
+    return None if a is None else torch.as_tensor(np.asarray(a), device=device, dtype=dtype)
+
+
+def task_tridiag(*, diag, lower, upper, rhs, device):
+    """``horizon_sharded_tridiag_solve`` of the given system over every rank."""
+    from ..parallel.horizon import horizon_sharded_tridiag_solve, make_horizon_mesh
+
+    mesh = make_horizon_mesh(device=device)
+    args = [torch.as_tensor(np.asarray(a), device=mesh.device) for a in (diag, lower, upper, rhs)]
+    return {"x": horizon_sharded_tridiag_solve(*args, mesh=mesh).cpu().numpy()}
+
+
+def task_solve(*, theta, options, horizon, height=50.0, x0=None, device):
+    """``solve_horizon_sharded`` of the lane change (θ (p,) or (B, p))."""
+    from ..parallel.horizon import make_horizon_mesh, solve_horizon_sharded
+
+    mesh = make_horizon_mesh(device=device)
+    mcp = _problem(horizon, height, mesh.device).parametric_game.mcp
+    theta = np.asarray(theta)
+    th = _tensor(theta, mesh.device, torch.from_numpy(theta).dtype)
+    _sync(device)
+    _reset()
+    t0 = time.perf_counter()
+    res = solve_horizon_sharded(mcp, th, mesh=mesh, x0=_tensor(x0, mesh.device, th.dtype),
+                                options=SolverOptions(**options))
+    _sync(device)
+    return {**_numpy(res), "seconds": time.perf_counter() - t0, "launches": _counts()}
+
+
+def task_batch(*, thetas, options, horizon, dp, hz, height=50.0, warm=0, device):
+    """``solve_batch_horizon_sharded`` of the lane change on a (dp, hz) mesh,
+    after ``warm`` lanes solved once untimed; the window is the timed batch."""
+    from ..parallel.horizon import make_dp_horizon_mesh, solve_batch_horizon_sharded
+
+    mesh = make_dp_horizon_mesh(dp, hz, device=device)
+    mcp = _problem(horizon, height, mesh.device).parametric_game.mcp
+    thetas = np.asarray(thetas)
+    th = _tensor(thetas, mesh.device, torch.from_numpy(thetas).dtype)
+    opts = SolverOptions(**options)
+    if warm:
+        solve_batch_horizon_sharded(mcp, th[:warm], mesh=mesh, options=opts)
+    _sync(device)
+    _reset()
+    t0 = time.perf_counter()
+    res = solve_batch_horizon_sharded(mcp, th, mesh=mesh, options=opts)
+    _sync(device)
+    return {**_numpy(res), "seconds": time.perf_counter() - t0, "launches": _counts()}
+
+
+def task_grad(*, thetas, options, horizon, height=50.0, device):
+    """The gradient of Σx² of ``horizon_sharded_solve_fn`` at θ (B, p), and
+    the kernel launches of the backward pass alone."""
+    from ..parallel.horizon import horizon_sharded_solve_fn, make_horizon_mesh
+    from ..solver import default_initialization
+
+    mesh = make_horizon_mesh(device=device)
+    mcp = _problem(horizon, height, mesh.device).parametric_game.mcp
+    thetas = np.asarray(thetas)
+    th = _tensor(thetas, mesh.device, torch.from_numpy(thetas).dtype).requires_grad_()
+    fn = horizon_sharded_solve_fn(mcp, mesh=mesh, options=SolverOptions(**options))
+    _reset()
+    res = fn(th, *default_initialization(mcp, th.detach()))
+    forward = _counts()
+    _reset()
+    (g,) = torch.autograd.grad((res.x ** 2).sum(), th)
+    _sync(device)
+    return {**_numpy(res), "grad": g.cpu().numpy(), "launches": forward,
+            "backward_launches": _counts()}
+
+
+def task_batch_sharded(*, thetas, options, horizon, height=50.0, device):
+    """``solve_batch_sharded`` of the lane change over every rank."""
+    from ..parallel.mesh import make_batch_mesh, solve_batch_sharded
+
+    mesh = make_batch_mesh(device=device)
+    mcp = _problem(horizon, height, mesh.device).parametric_game.mcp
+    thetas = np.asarray(thetas)
+    th = _tensor(thetas, mesh.device, torch.from_numpy(thetas).dtype)
+    res, n = solve_batch_sharded(mcp, th, mesh=mesh, options=SolverOptions(**options))
+    return {**_numpy(res), "num_solved": int(n)}
+
+
+TASKS = {"tridiag": task_tridiag, "solve": task_solve, "batch": task_batch,
+         "grad": task_grad, "batch_sharded": task_batch_sharded}
+
+
+def run_rank(rank: int, world: int, out_dir: str, tasks: list, device: str, backend: str,
+             threads: int, timeout_s: float):
+    """One rank: join the group, run every task, save the results to
+    ``out_dir/rank<rank>.pkl``. A rank that leaves a collective early makes
+    the others fail at ``timeout_s`` instead of hanging."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import initialize_distributed
+
+    torch.set_num_threads(threads)
+    initialize_distributed(backend=backend, init_method=f"file://{out_dir}/rendezvous",
+                           world_size=world, rank=rank,
+                           timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        results = {}
+        for task in tasks:
+            kw = {k: v for k, v in task.items() if k not in ("kind", "name")}
+            results[task["name"]] = TASKS[task["kind"]](**kw, device=device)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def start(world: int, tasks: list, out_dir, *, device="cuda", backend="gloo", threads=1,
+          timeout_s: float = 600.0):
+    """Start ``tasks`` on ``world`` spawned ranks (see the module docstring)
+    and return at once a callable that waits for them and returns each
+    rank's {task name: results}, so the caller can work meanwhile.
+    ``out_dir`` must be a fresh directory (it holds the rendezvous file)."""
+    import torch.multiprocessing as mp
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if (out_dir / "rendezvous").exists():
+        raise ValueError(f"{out_dir} holds a rendezvous file of an earlier run")
+    ctx = mp.start_processes(run_rank, args=(world, str(out_dir), tasks, str(device), backend,
+                                             threads, timeout_s),
+                             nprocs=world, join=False, start_method="spawn")
+
+    def results() -> list[dict]:
+        while not ctx.join():
+            pass
+        out = []
+        for r in range(world):
+            with open(out_dir / f"rank{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+    return results
+
+
+def spawn(world: int, tasks: list, out_dir, **kwargs) -> list[dict]:
+    """Run ``tasks`` on ``world`` spawned ranks and wait for them: ``start``'s
+    keywords; returns each rank's {task name: results}."""
+    return start(world, tasks, out_dir, **kwargs)()

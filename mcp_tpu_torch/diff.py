@@ -22,7 +22,8 @@ package's three branches do:
   bands) is solved by the block-tridiagonal solve of ``options.linear_solver``
   ("tridiag_pallas" → its kernel route, e.g. K7a; "tridiag_auto" → its route;
   "tridiag_cr" → cyclic reduction; every other tier → the plain LU
-  block-Thomas);
+  block-Thomas), or by the override ``tridiag_solver`` of ``_solve_ts``
+  (the horizon-sharded SPIKE solve of ``parallel/horizon.py``);
 * ``"condensed"``, or ``"tridiag"`` without row structure, with Hy ≡ 0: the
   same elimination on the dense n×n A, solved by ``torch.linalg.solve``
   (``"tridiag"``: ``block_tridiag.tridiag_solve_permuted``);
@@ -69,9 +70,14 @@ _MISSING = (
 IFT_NEWTON_TIERS = ("tridiag_pallas", "tridiag_auto", "tridiag_cr")
 
 
-def _band_solve(tier: str, diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
-    """The banded IFT's block-tridiagonal solve on tier ``tier``."""
-    solver = BANDED_SOLVERS[tier] if tier in IFT_NEWTON_TIERS else block_thomas_solve
+def _band_solve(tier: str, diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
+                tridiag_solver=None) -> Tensor:
+    """The banded IFT's block-tridiagonal solve on tier ``tier``, or by the
+    override ``tridiag_solver`` when one is given."""
+    if tridiag_solver is not None:
+        solver = tridiag_solver
+    else:
+        solver = BANDED_SOLVERS[tier] if tier in IFT_NEWTON_TIERS else block_thomas_solve
     return solver(diag, lower, upper, rhs)
 
 
@@ -100,7 +106,7 @@ def _eliminated(n, y, s, A_solve, AT_solve, Gy_mv, GyT_mv, Hx_mv, HxT_mv):
     return solve, transpose_solve
 
 
-def _banded_operators(mcp, options, x, y, s, theta):
+def _banded_operators(mcp, options, x, y, s, theta, tridiag_solver=None):
     """The banded IFT: colored-seed (or affine) bands at the solution, the
     n×n core solves on (diag, lower, upper) or their transposes."""
     ts = mcp.time_structure
@@ -124,7 +130,8 @@ def _banded_operators(mcp, options, x, y, s, theta):
     def core(diag, lo, up):
         def solve(rhs):
             out = _band_solve(options.linear_solver, diag, lo, up,
-                              rhs[:, perm].reshape(B, T, b).contiguous())
+                              rhs[:, perm].reshape(B, T, b).contiguous(),
+                              tridiag_solver=tridiag_solver)
             return out.reshape(B, -1)[:, inv]
 
         return solve
@@ -139,15 +146,17 @@ def _banded_operators(mcp, options, x, y, s, theta):
     )
 
 
-def _ift_operators(mcp: PrimalDualMCP, options: SolverOptions, x, y, s, theta):
+def _ift_operators(mcp: PrimalDualMCP, options: SolverOptions, x, y, s, theta,
+                   tridiag_solver=None):
     """(solve, transpose_solve) of −∇F_z at the solution: ``solve(b)`` is
     z with −∇F_z z = b, ``transpose_solve(c)`` is w with (−∇F_z)ᵀ w = c,
-    both over the batch ((B, n+2m) → (B, n+2m))."""
+    both over the batch ((B, n+2m) → (B, n+2m)). ``tridiag_solver`` reaches
+    the banded branch only, as in the JAX package."""
     sens = options.sensitivity_solver
     ts = mcp.time_structure
     if (sens == "tridiag" and mcp.assume_hy_zero and ts is not None
             and ts.row_permutation is not None):
-        return _banded_operators(mcp, options, x, y, s, theta)
+        return _banded_operators(mcp, options, x, y, s, theta, tridiag_solver)
     with record_function(SPAN_IFT_BANDS):
         Gx, Gy, Hx, Hy = vmap(mcp.gh_jacobians)(x, y, theta)
     if sens in ("condensed", "tridiag") and mcp.assume_hy_zero:
@@ -181,18 +190,20 @@ def _F_of_theta(mcp, x, y, s, eps):
 
 
 class _IFTSolve(torch.autograd.Function):
-    """``ip_solve`` with IFT derivatives in θ (reverse and forward mode)."""
+    """``ip_solve`` with IFT derivatives in θ (reverse and forward mode);
+    ``tridiag_solver`` overrides the banded block-tridiagonal solves of both
+    the solve and the IFT."""
 
     @staticmethod
-    def forward(mcp, options, theta, x0, y0, s0):
-        return tuple(ip_solve(mcp, options, theta, x0, y0, s0))
+    def forward(mcp, options, tridiag_solver, theta, x0, y0, s0):
+        return tuple(ip_solve(mcp, options, theta, x0, y0, s0, tridiag_solver))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        mcp, options, theta = inputs[:3]
+        mcp, options, tridiag_solver, theta = inputs[:4]
         x, y, s, kkt, eps, outer, status = output
         ctx.mark_non_differentiable(kkt, eps, outer, status)
-        ctx.mcp, ctx.options = mcp, options
+        ctx.mcp, ctx.options, ctx.tridiag_solver = mcp, options, tridiag_solver
         ctx.save_for_backward(theta, x, y, s, eps)
         ctx.save_for_forward(theta, x, y, s, eps)
 
@@ -203,14 +214,15 @@ class _IFTSolve(torch.autograd.Function):
         theta, x, y, s, eps = ctx.saved_tensors
         zbar = torch.cat([torch.zeros_like(v) if g is None else g
                           for g, v in ((gx, x), (gy, y), (gs, s))], dim=1)
-        _, transpose_solve = _ift_operators(ctx.mcp, ctx.options, x, y, s, theta)
+        _, transpose_solve = _ift_operators(ctx.mcp, ctx.options, x, y, s, theta,
+                                            ctx.tridiag_solver)
         with record_function(SPAN_IFT_SOLVE):
             w = transpose_solve(zbar)
         _, F_vjp = vjp(_F_of_theta(ctx.mcp, x, y, s, eps), theta)
-        return None, None, F_vjp(w)[0], None, None, None
+        return None, None, None, F_vjp(w)[0], None, None, None
 
     @staticmethod
-    def jvp(ctx, _mcp, _options, theta_dot, *_):
+    def jvp(ctx, _mcp, _options, _tridiag_solver, theta_dot, *_):
         if not ctx.mcp.compute_sensitivities:
             raise ValueError(_MISSING)
         theta, x, y, s, eps = ctx.saved_tensors
@@ -219,17 +231,33 @@ class _IFTSolve(torch.autograd.Function):
             z = torch.zeros((x.shape[0], n + 2 * m), dtype=x.dtype, device=x.device)
         else:
             _, F_dot = jvp(_F_of_theta(ctx.mcp, x, y, s, eps), (theta,), (theta_dot,))
-            solve, _ = _ift_operators(ctx.mcp, ctx.options, x, y, s, theta)
+            solve, _ = _ift_operators(ctx.mcp, ctx.options, x, y, s, theta,
+                                      ctx.tridiag_solver)
             with record_function(SPAN_IFT_SOLVE):
                 z = solve(F_dot)
         return z[:, :n], z[:, n : n + m], z[:, n + m :], None, None, None, None
 
 
-def _solve(mcp: PrimalDualMCP, options: SolverOptions, theta, x0, y0, s0) -> SolveResult:
+def _solve_ts(mcp: PrimalDualMCP, options: SolverOptions, tridiag_solver, newton_solver,
+              theta, x0, y0, s0) -> SolveResult:
     """One batched solve (θ (B, p), warm starts (B, ·)), differentiable in θ
-    through the IFT. The solve itself runs without a graph, so a θ that
-    carries no gradient and no tangent costs what ``ip_solve`` costs."""
-    return SolveResult(*_IFTSolve.apply(mcp, options, theta, x0, y0, s0))
+    through the IFT, with the banded block-tridiagonal solves of the Newton
+    steps and of the IFT overridden by ``tridiag_solver`` (None: the tier's
+    own). The solve itself runs without a graph, so a θ that carries no
+    gradient and no tangent costs what ``ip_solve`` costs. ``newton_solver``
+    (the JAX package's whole-Newton-step override of its tensor-parallel
+    backend) is not ported."""
+    if newton_solver is not None:
+        raise NotImplementedError(
+            "newton_solver (the tensor-parallel Newton step, parallel/tensor.py) "
+            "is not ported yet (ROADMAP Queue 1 item 8)"
+        )
+    return SolveResult(*_IFTSolve.apply(mcp, options, tridiag_solver, theta, x0, y0, s0))
+
+
+def _solve(mcp: PrimalDualMCP, options: SolverOptions, theta, x0, y0, s0) -> SolveResult:
+    """``_solve_ts`` without overrides."""
+    return _solve_ts(mcp, options, None, None, theta, x0, y0, s0)
 
 
 def solve(

@@ -32,8 +32,10 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 from torch.func import grad
 
+from . import diff as _diff
 from .blocks import Blocking, concat_blocks
 from .mcp import PrimalDualMCP
+from .solver import SolverOptions
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -257,3 +259,66 @@ class ParametricGame:
     @property
     def parameter_blocking(self) -> Blocking:
         return Blocking(self.dims.theta)
+
+
+class GameSolveResult(NamedTuple):
+    """A game solve: the per-player primals and the raw MCP variables (the
+    JAX package's ``GameSolveResult``)."""
+
+    primals: tuple[torch.Tensor, ...]
+    x: torch.Tensor
+    y: torch.Tensor
+    s: torch.Tensor
+    kkt_error: torch.Tensor
+    epsilon: torch.Tensor
+    outer_iters: torch.Tensor
+    status: torch.Tensor
+
+    @property
+    def variables(self):
+        """The raw MCP variables as a bundle ``(x, y, s)``, for warm starts."""
+        from types import SimpleNamespace
+
+        return SimpleNamespace(x=self.x, y=self.y, s=self.s)
+
+
+def solve_game(
+    game: ParametricGame,
+    theta,
+    *,
+    x0=None,
+    y0=None,
+    s0=None,
+    options: Optional[SolverOptions] = None,
+    **option_overrides,
+) -> GameSolveResult:
+    """Solve one instance of a parametric game. ``theta`` is a flat vector
+    (the per-player blocks concatenated) or a sequence of per-player blocks;
+    the iterates take its dtype and device. Without ``options``, the tier
+    defaults to ``linear_solver="schur"`` and
+    ``sensitivity_solver="condensed"`` (game MCPs have Hy ≡ 0, so both are
+    exact), as in the JAX package. Differentiable in θ (``diff.solve``)."""
+    if isinstance(theta, (list, tuple)):
+        theta = concat_blocks(theta)
+    else:
+        theta = torch.as_tensor(theta).reshape(-1)
+    if options is None:
+        option_overrides.setdefault("linear_solver", "schur")
+        option_overrides.setdefault("sensitivity_solver", "condensed")
+    sol = _diff.solve(game.mcp, theta, x0=x0, y0=y0, s0=s0, options=options,
+                      **option_overrides)
+    return GameSolveResult(
+        primals=game.primal_blocking.split(sol.x[: sum(game.dims.x)]),
+        x=sol.x,
+        y=sol.y,
+        s=sol.s,
+        kkt_error=sol.kkt_error,
+        epsilon=sol.epsilon,
+        outer_iters=sol.outer_iters,
+        status=sol.status,
+    )
+
+
+def num_players(game: ParametricGame) -> int:
+    """The number of players (the JAX package's ``num_players``)."""
+    return game.num_players

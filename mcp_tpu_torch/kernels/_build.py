@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("thomas", "linesearch", "gauss_jordan", "qr_dense", "cyclic_reduction",
-           "thomas_babe")
+           "thomas_babe", "thomas_multi", "qr_sep", "wy_qr")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

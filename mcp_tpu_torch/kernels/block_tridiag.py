@@ -9,8 +9,9 @@ costs O(T·b³) instead of O((Tb)³).
 
 Batch convention: the solver-path functions (``reconstruct_bands``,
 ``gh_banded_fast``, ``banded_newton_step_compressed``, ``banded_jac_mv``,
-``block_thomas_solve``, ``block_cyclic_reduction_solve``, ``extract_blocks``,
-``tridiag_solve_permuted``) take a leading batch axis B on every
+``block_thomas_solve``, ``block_thomas_solve_multi``,
+``block_cyclic_reduction_solve``, ``extract_blocks``, ``tridiag_solve_permuted``)
+take a leading batch axis B on every
 iterate-shaped argument. ``gh_banded`` and ``build_affine_bands`` work on one instance (the
 game build probes them once).
 """
@@ -68,23 +69,24 @@ def _eye(b: int) -> np.ndarray:
     return np.eye(b)
 
 
-def block_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
-    """Block-Thomas by per-block LU solves, batched: diag (B, T, b, b);
-    lower/upper (B, T-1, b, b) (lower[t] couples block t+1 to t, upper[t]
-    block t to t+1); rhs (B, T, b) → x (B, T, b). A second reference for the
-    Householder sweep of kernels/thomas.py."""
+def block_thomas_solve_multi(diag: Tensor, lower: Tensor, upper: Tensor,
+                             rhs: Tensor) -> Tensor:
+    """Multi-right-hand-side block-Thomas by per-block LU solves, batched:
+    diag (B, T, b, b); lower/upper (B, T-1, b, b) (lower[t] couples block
+    t+1 to t, upper[t] block t to t+1); rhs (B, T, b, k) → x (B, T, b, k).
+    One factorization sweep serves all k columns (the SPIKE local stage of
+    parallel/horizon.py carries [r | e₀⊗L_bound | e_last⊗U_bound]). The plain
+    twin of K6 (kernels/thomas_multi.py) and a second reference for K1."""
     B, T, b, _ = diag.shape
     C_prev = torch.zeros_like(diag[:, 0])
-    d_prev = torch.zeros_like(rhs[:, 0, :, None])
+    d_prev = torch.zeros_like(rhs[:, 0])
     zero = torch.zeros_like(diag[:, 0])
     Cs, ds = [], []
     for t in range(T):
         L = lower[:, t - 1] if t > 0 else zero
         U = upper[:, t] if t < T - 1 else zero
         denom = diag[:, t] - L @ C_prev
-        sol = torch.linalg.solve(
-            denom, torch.cat([U, rhs[:, t, :, None] - L @ d_prev], dim=2)
-        )
+        sol = torch.linalg.solve(denom, torch.cat([U, rhs[:, t] - L @ d_prev], dim=2))
         C_prev, d_prev = sol[..., :b], sol[..., b:]
         Cs.append(C_prev)
         ds.append(d_prev)
@@ -92,8 +94,15 @@ def block_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) 
     x_next = torch.zeros_like(d_prev)
     for t in range(T - 1, -1, -1):
         x_next = ds[t] - Cs[t] @ x_next
-        xs[t] = x_next[..., 0]
+        xs[t] = x_next
     return torch.stack(xs, dim=1)
+
+
+def block_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor) -> Tensor:
+    """Block-Thomas by per-block LU solves, batched: ``block_thomas_solve_multi``
+    with one right-hand side, rhs (B, T, b) → x (B, T, b). A second reference
+    for the Householder sweep of kernels/thomas.py."""
+    return block_thomas_solve_multi(diag, lower, upper, rhs[..., None])[..., 0]
 
 
 def extract_blocks(A_perm: Tensor, T: int, b: int):
@@ -111,15 +120,19 @@ def _column_permutation(structure: TimeStructure):
     return perm, np.argsort(perm)
 
 
-def tridiag_solve_permuted(A: Tensor, rhs: Tensor, structure: TimeStructure) -> Tensor:
+def tridiag_solve_permuted(A: Tensor, rhs: Tensor, structure: TimeStructure, *,
+                           algorithm=None) -> Tensor:
     """Solve A x = rhs over a batch, A (B, n, n), rhs (B, n), by permuting
     to time-major block-tridiagonal form (entries of A outside the band are
     ignored: they are structurally zero for trajectory-game Schur systems)
-    and ``block_thomas_solve``."""
+    and the block-tridiagonal solve ``algorithm`` (diag, lower, upper, rhs)
+    → x, default ``block_thomas_solve``; its operands are contiguous."""
     perm, inv = (const(a, torch.long, A.device) for a in _column_permutation(structure))
     T, b = structure.num_blocks, structure.block_size
     diag, lower, upper = extract_blocks(A[:, perm][:, :, perm], T, b)
-    x = block_thomas_solve(diag, lower, upper, rhs[:, perm].reshape(-1, T, b))
+    solver = block_thomas_solve if algorithm is None else algorithm
+    x = solver(diag.contiguous(), lower.contiguous(), upper.contiguous(),
+               rhs[:, perm].reshape(-1, T, b).contiguous())
     return x.reshape(x.shape[0], -1)[:, inv]
 
 
@@ -484,3 +497,4 @@ def banded_jac_mv(diag, lower, upper, Gy_blocks, Hx_blocks, y, s, dx, dy, ds,
     eG = (Gx_dx + mv(Gy_blocks, dyb)).reshape(B, -1)[:, inv]
     eH = mv(Hx_blocks, dxb).reshape(B, -1)[:, rinv] - ds
     return eG, eH, s * dy + y * ds
+

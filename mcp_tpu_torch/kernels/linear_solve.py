@@ -1,4 +1,5 @@
-"""K4a, K4b/K4c, K5: batched dense solves of the Schur-condensed Newton step.
+"""K4a, K4b/K4c, K5, K8a, K8b: batched dense solves of the Schur-condensed
+Newton step.
 
 Every function takes the JAX package's public layout: A (B, n, n), b (B, n),
 float32 or float64.
@@ -10,7 +11,25 @@ float32 or float64.
 * ``gauss_solve(A, b) -> x``: Householder QR without pivoting on [A | b],
   β = 1/(‖v‖(‖v‖+|v_k|)+eps), then back substitution (K4b/K4c; replaces
   ``::_qr_lanes_kernel`` and ``::_qr_solve_aug_kernel``, one function: the
-  JAX package's B ≥ 128 gate between them is a TPU layout rule).
+  JAX package's B ≥ 128 gate between them is a TPU layout rule). A batch of
+  one system goes to ``pallas_gauss_solve`` instead.
+* ``pallas_gauss_solve(A, b) -> x``: Householder QR without pivoting with b
+  kept apart from A, α = −sign(v_k)‖v‖ (‖v‖ = sqrt(v·v + eps)), u = v − α e_k,
+  β = 2/(u·u + eps) (0 when u·u ≤ eps), A ← A − βu(uᵀA), b ← b − β(u·b)u,
+  then back substitution with the raw R diagonal (K8a; replaces
+  ``::_qr_solve_kernel``). The JAX package reaches it by an unbatched
+  ``gauss_solve``, i.e. every one-instance solve on "schur_pallas"; this
+  port's one-instance solve is a batch of one, so ``gauss_solve`` routes
+  B = 1 here. (A vmapped batch of one goes to K4c in the JAX package: the
+  two round differently, not in what they solve.)
+* ``wy_solve(A, b, *, panel=8) -> x``: the same reflections (K8a's β) in
+  panels of ``panel`` columns accumulated as a compact-WY block reflector
+  I − U·T·Uᵀ (LAPACK's larft, forward and columnwise: T[:k, k] = −β·T·(Uᵀu),
+  T[k, k] = β), the trailing matrix and b updated once per panel,
+  A ← A − U·(Tᵀ·(UᵀA)); n is padded to a multiple of ``panel`` with identity
+  rows and columns (K8b; replaces ``::_wy_qr_solve_kernel``; no tier reaches
+  it, the JAX package's ``scripts/profile_qp_phases.py`` times it beside
+  the unblocked QR).
 
 Failure semantics are the reference's. GJ guards its pivot as
 ``1/where(|p| > 1e-30, p, 1e-30)``: a zero pivot gives huge values, not NaN.
@@ -24,10 +43,11 @@ batch column-major on lanes; none of that is carried over (the padded
 identity rows are decoupled, so dropping them changes no result).
 
 A CUDA tensor launches the hand-written kernel (``csrc/gauss_jordan.cu``,
-``csrc/qr_dense.cu``) or raises; a CPU tensor runs the plain PyTorch version
-of the same algebra (``gj_solve_plain``, ``gji_solve_plain``,
-``qr_solve_plain``). Each wrapper counts its kernel launches in
-``.launches``.
+``csrc/qr_dense.cu``, ``csrc/qr_sep.cu``, ``csrc/wy_qr.cu``) or raises; a
+CPU tensor runs the plain PyTorch version of the same algebra
+(``gj_solve_plain``, ``gji_solve_plain``, ``qr_solve_plain``,
+``qr_solve_sep_plain``, ``wy_solve_plain``). Each wrapper counts its kernel
+launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -87,6 +107,83 @@ def qr_solve_plain(A: Tensor, b: Tensor) -> Tensor:
     return qr_solve_aug_plain(torch.cat([A, b[:, :, None]], dim=2), n)[:, :, 0]
 
 
+def _reflector(v: Tensor, k: int):
+    """K8a's Householder reflector of the column v (S, n), zero above row
+    k: (u, β) with α = −sign(v_k)·sqrt(v·v + eps), u = v − α e_k and
+    β = 2/(u·u + eps), or 0 when u·u ≤ eps."""
+    vk = v[:, k]
+    norm = torch.sqrt((v * v).sum(dim=1) + _EPS)
+    alpha = -torch.where(vk >= 0, 1.0, -1.0).to(v.dtype) * norm
+    u = v.clone()
+    u[:, k] = vk - alpha
+    uu = (u * u).sum(dim=1)
+    beta = torch.where(uu > _EPS, 2.0 / (uu + _EPS), torch.zeros_like(uu))
+    return u, beta
+
+
+def _back_substitute(R: Tensor, c: Tensor) -> Tensor:
+    """x with R x = c for the upper triangle of R (S, n, n), the raw
+    diagonal as the divisor."""
+    x = torch.zeros_like(c)
+    for k in range(R.shape[1] - 1, -1, -1):
+        x[:, k] = (c[:, k] - (R[:, k] * x).sum(dim=1)) / R[:, k, k]
+    return x
+
+
+def qr_solve_sep_plain(A: Tensor, b: Tensor) -> Tensor:
+    """K8a's algebra in batched PyTorch ops, on any device: n reflections
+    each applied to A and to b apart, then back substitution."""
+    n = A.shape[-1]
+    rows = torch.arange(n, device=A.device)
+    for k in range(n):
+        u, beta = _reflector(torch.where(rows >= k, A[:, :, k], 0.0), k)
+        w = (u[:, None, :] @ A)[:, 0]
+        A = A - (beta[:, None] * u)[:, :, None] * w[:, None, :]
+        b = b - (beta * (u * b).sum(dim=1))[:, None] * u
+    return _back_substitute(A, b)
+
+
+def _pad_to_panel(A: Tensor, b: Tensor, panel: int):
+    """A, b padded with identity rows and columns to n a multiple of
+    ``panel`` (the pad is decoupled: x there is 0)."""
+    B, n, _ = A.shape
+    npad = -n % panel
+    if npad == 0:
+        return A, b
+    Ap = A.new_zeros((B, n + npad, n + npad))
+    Ap[:, :n, :n] = A
+    Ap[:, n:, n:] = torch.eye(npad, dtype=A.dtype, device=A.device)
+    return Ap, torch.cat([b, b.new_zeros((B, npad))], dim=1)
+
+
+def wy_solve_plain(A: Tensor, b: Tensor, panel: int = 8) -> Tensor:
+    """K8b's algebra in batched PyTorch ops, on any device: per panel of
+    ``panel`` columns, the reflections confined to the panel with T
+    accumulated by larft, then A ← A − U·(Tᵀ·(UᵀA)) and b likewise; back
+    substitution on the padded system."""
+    n0 = A.shape[-1]
+    A, b = _pad_to_panel(A, b, panel)
+    S, n, _ = A.shape
+    rows = torch.arange(n, device=A.device)
+    for j0 in range(0, n, panel):
+        P = A[:, :, j0 : j0 + panel]
+        U = A.new_zeros((S, n, panel))
+        T = A.new_zeros((S, panel, panel))
+        for k in range(panel):
+            u, beta = _reflector(torch.where(rows >= j0 + k, P[:, :, k], 0.0), j0 + k)
+            w = (u[:, None, :] @ P)[:, 0]
+            P = P - (beta[:, None] * u)[:, :, None] * w[:, None, :]
+            z = -beta[:, None] * (T @ (u[:, None, :] @ U)[:, 0, :, None])[..., 0]
+            T = T.clone()
+            T[:, :, k] += z
+            T[:, k, k] += beta
+            U = U.clone()
+            U[:, :, k] = u
+        A = A - U @ (T.mT @ (U.mT @ A))
+        b = b - (U @ (T.mT @ (U.mT @ b[..., None])))[..., 0]
+    return _back_substitute(A, b)[:, :n0]
+
+
 def _check(name: str, A: Tensor, b: Tensor):
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"{name}: A must be (B, n, n), got {tuple(A.shape)}")
@@ -108,8 +205,23 @@ def _smem_bytes(n: int, cols: int, itemsize: int) -> int:
     return itemsize * (n * cols + n + cols + 1)
 
 
-def _check_fits(name: str, n: int, cols: int, dtype):
-    need = _smem_bytes(n, cols, torch.empty((), dtype=dtype).element_size())
+def _qr_sep_smem_bytes(n: int, itemsize: int) -> int:
+    """K8a's shared memory (``csrc/qr_sep.cu``): A (row stride n+1), b, u,
+    w (n+1 entries: uᵀA and u·b) and four scalars."""
+    return itemsize * (n * (n + 1) + 3 * n + 1 + 4)
+
+
+def _wy_smem_bytes(n: int, panel: int, itemsize: int) -> int:
+    """K8b's shared memory (``csrc/wy_qr.cu``) at the padded n: A (row
+    stride n+1), b, u, the panel P and U (n × panel each), T (panel²), the
+    (panel × (n+1)) product Tᵀ(Uᵀ[A | b]), w, Uᵀu and four scalars."""
+    return itemsize * (n * (n + 1) + 2 * n + 2 * n * panel + panel * panel
+                       + panel * (n + 1) + 2 * panel + 4)
+
+
+def _check_fits(name: str, n: int, cols: int, dtype, need=None):
+    if need is None:
+        need = _smem_bytes(n, cols, torch.empty((), dtype=dtype).element_size())
     if need > _SMEM_LIMIT:
         raise ValueError(
             f"{name}: n={n} in {dtype} needs {need} bytes of shared memory, "
@@ -167,8 +279,11 @@ gji_solve.launches = 0
 
 def gauss_solve(A: Tensor, b: Tensor) -> Tensor:
     """Householder-QR solve without pivoting, A (B, n, n), b (B, n) →
-    x (B, n) (K4b/K4c; see the module docstring)."""
+    x (B, n): K4b/K4c, or K8a (``pallas_gauss_solve``) for a batch of one
+    system (see the module docstring)."""
     _check("gauss_solve", A, b)
+    if A.shape[0] == 1:
+        return pallas_gauss_solve(A, b)
     if A.device.type == "cpu":
         return qr_solve_plain(A, b)
     n = A.shape[-1]
@@ -183,6 +298,56 @@ def gauss_solve(A: Tensor, b: Tensor) -> Tensor:
 gauss_solve.launches = 0
 
 
+def pallas_gauss_solve(A: Tensor, b: Tensor) -> Tensor:
+    """Householder-QR solve without pivoting with b kept apart from A,
+    A (B, n, n), b (B, n) → x (B, n) (K8a; see the module docstring)."""
+    _check("pallas_gauss_solve", A, b)
+    if A.device.type == "cpu":
+        return qr_solve_sep_plain(A, b)
+    n = A.shape[-1]
+    _check_fits("pallas_gauss_solve", n, n + 1, A.dtype,
+                _qr_sep_smem_bytes(n, A.element_size()))
+    x = torch.empty_like(b)
+    if A.shape[0] and n:
+        _launch("qr_sep", "mcp_qr_sep_solve", pallas_gauss_solve, A,
+                [A.data_ptr(), b.data_ptr(), x.data_ptr()])
+    return x
+
+
+pallas_gauss_solve.launches = 0
+
+
+def wy_solve(A: Tensor, b: Tensor, *, panel: int = 8) -> Tensor:
+    """Compact-WY blocked Householder-QR solve, A (B, n, n), b (B, n) →
+    x (B, n), in panels of ``panel`` ≤ 16 columns (K8b; see the module
+    docstring)."""
+    _check("wy_solve", A, b)
+    if not 1 <= panel <= WY_MAX_PANEL:
+        raise ValueError(f"wy_solve: panel must be in 1..{WY_MAX_PANEL}, got {panel}")
+    if A.device.type == "cpu":
+        return wy_solve_plain(A, b, panel)
+    n0 = A.shape[-1]
+    Ap, bp = _pad_to_panel(A, b, panel)
+    n = Ap.shape[-1]
+    _check_fits("wy_solve", n, n + 1, A.dtype, _wy_smem_bytes(n, panel, A.element_size()))
+    x = torch.empty_like(bp)
+    if A.shape[0] and n:
+        B = A.shape[0]
+        with torch.cuda.device(A.device):
+            err = _entry("wy_qr", "mcp_wy_solve")(
+                0 if A.dtype == torch.float32 else 1, Ap.data_ptr(), bp.data_ptr(),
+                x.data_ptr(), B, n, panel, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"mcp_wy_solve launch failed: CUDA error {err}")
+        wy_solve.launches += 1
+    return x[:, :n0]
+
+
+wy_solve.launches = 0
+#: The widest panel K8b's kernel takes (its per-thread column products).
+WY_MAX_PANEL = 16
+
+
 def _entry(lib: str, symbol: str):
     from ._build import load
 
@@ -190,6 +355,7 @@ def _entry(lib: str, symbol: str):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         nptr = 4 if lib == "gauss_jordan" else 3
-        fn.argtypes = [ci] + [vp] * nptr + [ci, ci, vp]
+        fn.argtypes = ([ci] + [vp] * nptr + [ci, ci]
+                       + ([ci] if lib == "wy_qr" else []) + [vp])
         fn.restype = ctypes.c_int
     return fn

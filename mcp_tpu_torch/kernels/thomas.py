@@ -101,24 +101,29 @@ def _batch_stride(a: Tensor, name: str) -> int:
     return 0 if a.shape[0] > 1 and a.stride(0) == 0 else per
 
 
-def sweep_smem_bytes(b: int, fact: str, itemsize: int) -> int:
-    """Shared memory of one direction of the sweep (``csrc/thomas.cu::
-    dir_bytes``): the working set of ``solve_aug.cuh`` for [D − LC | U | r]
-    (plus I with refinement), the original [D − LC | U | r] with refinement,
-    L (b×b, then the scratch slab) and [C | d] (b×(b+1))."""
+def sweep_smem_bytes(b: int, fact: str, itemsize: int, k: int = 1) -> int:
+    """Shared memory of one direction of the sweep with k right-hand-side
+    columns (``csrc/thomas.cu::dir_bytes`` at k = 1, ``csrc/thomas_multi.cu``
+    for K6): the working set of ``solve_aug.cuh`` for [D − LC | U | r] (plus
+    I with refinement), the original [D − LC | U | r] with refinement, L
+    (b×b, then the scratch slab) and [C | d] (b×(b+k))."""
     family, refine = FACT_CODES[fact]
-    ld = 2 * b + 1 + (b if refine else 0)
-    extra = (b * (2 * b + 1) if refine else 0) + b * b + b * (b + 1)
+    ld = 2 * b + k + (b if refine else 0)
+    extra = (b * (2 * b + k) if refine else 0) + b * b + b * (b + k)
     return aug_smem_bytes(b, ld, family, 0, itemsize) + itemsize * extra
 
 
-def check_fits(b: int, fact: str, dtype, directions: int = 1, name: str = "thomas_solve"):
+def check_fits(b: int, fact: str, dtype, directions: int = 1, name: str = "thomas_solve",
+               k: int = 1):
     """Raise when ``directions`` working sets of the sweep at (b, fact, dtype)
-    do not fit one block's shared memory (e.g. gjpr at b=64 in float64)."""
-    need = directions * sweep_smem_bytes(b, fact, torch.empty((), dtype=dtype).element_size())
+    with k right-hand sides do not fit one block's shared memory (e.g. gjpr
+    at b=64 in float64)."""
+    need = directions * sweep_smem_bytes(
+        b, fact, torch.empty((), dtype=dtype).element_size(), k)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"{name}: fact={fact!r} at b={b} in {dtype} needs {need} bytes of shared "
+            f"{name}: fact={fact!r} at b={b}" + (f", k={k}" if k != 1 else "")
+            + f" in {dtype} needs {need} bytes of shared "
             f"memory, over the card's {SMEM_LIMIT} per block"
         )
 

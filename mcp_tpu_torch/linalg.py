@@ -19,28 +19,32 @@ Tiers:
         (Gx + tI − Gy·diag(1/w)·Hx) δx = −rG + Gy·((rH + d·rC)/w),
         d = 1/(y+t), w = t + d·s,
     solved by batched LU.
-  * "schur_pallas": the Schur system by the Householder-QR kernel (K4b/K4c,
-    ``kernels.linear_solve.gauss_solve``).
+  * "schur_pallas": the Schur system by the Householder-QR kernels
+    (``kernels.linear_solve.gauss_solve``: K4b/K4c on a batch, K8a on a
+    single system).
   * "schur_pallas_gj": by the no-pivot Gauss–Jordan kernel (K4a,
     ``gj_solve``); SPD Schur matrices only (convex QPs).
   * "schur_pallas_gjr": by the Gauss–Jordan solve-and-inverse kernel (K5,
     ``gji_solve``) plus one refinement with A⁻¹ against the true matrix.
 
 The LU tiers use ``torch.linalg`` as the JAX package leaves them to XLA; the
-Schur product (Gy/w)·Hx is a plain batched matmul. The JAX package's
-"gmres" tier is not ported (it reaches no Pallas kernel).
+Schur product (Gy/w)·Hx is a plain batched matmul. ``newton_step_tridiag``
+is the banded tiers' step on an MCP whose Jacobian is linearized densely
+(no row time structure). The JAX package's "gmres" tier is not ported (it
+reaches no Pallas kernel).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .kernels.block_tridiag import tridiag_solve_permuted
 from .kernels.linear_solve import gauss_solve, gj_solve, gji_solve
 
 Tensor = torch.Tensor
 
 GMRES_NOT_PORTED = (
-    "linear_solver='gmres' is not ported yet (ROADMAP Queue 1 item 8)"
+    "linear_solver='gmres' is not ported yet (ROADMAP Queue 1 item 3)"
 )
 
 
@@ -160,6 +164,21 @@ def newton_step_schur_pallas_gjr(Gx, Gy, Hx, Hy, y, s, rG, rH, rC, reg):
     A, b, b2, w, d = _schur_system(Gx, Gy, Hx, y, s, rG, rH, rC, reg)
     dx0, Ainv = gji_solve(A, b)
     dx = dx0 + _mv(Ainv, b - _mv(A, dx0))
+    return _schur_recover(dx, Hx, b2, w, d, s, rC)
+
+
+def newton_step_tridiag(Gx, Gy, Hx, Hy, y, s, rG, rH, rC, reg, *, structure,
+                        algorithm=None):
+    """Schur step solved by the time-major block-tridiagonal solve
+    ``algorithm`` (diag, lower, upper, rhs) → x (default the plain LU
+    block-Thomas): the banded tiers on a game without a row time structure,
+    whose Jacobian is linearized densely. The dense n×n Schur system is
+    permuted to time-major bands (``block_tridiag.tridiag_solve_permuted``).
+    The solver reaches this only without ``row_permutation``; with one the
+    banded tiers linearize band by band (``banded_newton_step_compressed``),
+    and the JAX package's band-only assembly of this step is not ported."""
+    A, b, b2, w, d = _schur_system(Gx, Gy, Hx, y, s, rG, rH, rC, reg)
+    dx = tridiag_solve_permuted(A, b, structure, algorithm=algorithm)
     return _schur_recover(dx, Hx, b2, w, d, s, rC)
 
 

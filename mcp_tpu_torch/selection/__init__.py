@@ -1,7 +1,7 @@
 """Player-selection layer: the masked N-player games, their batched
 runner, the mask-predictor MLP, the composite loss and the solver-in-the-loop
 training step. The data layer, the training loop, baselines and evaluation
-are not ported yet (ROADMAP Queue 1 item 11)."""
+are not ported yet (ROADMAP Queue 1 item 4)."""
 
 from .games import (
     build_masked_parametric_game,

@@ -5,7 +5,7 @@ call. ``solve`` is differentiable in the masks (and every other θ entry)
 through ``solve_batch``'s implicit-function-theorem rule.
 
 ``generate_ground_truth`` needs the scenario data layer and is not ported
-yet (ROADMAP Queue 1 item 11).
+yet (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ output. The gradient of the solve comes from the implicit function theorem
 (``diff.py``), so one ``torch.autograd.grad`` differentiates the whole step.
 
 The data layer, the ``train()`` loop, the metrics logger, checkpoints and the
-random-gradient fallback are not ported yet (ROADMAP Queue 1 item 11).
+random-gradient fallback are not ported yet (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -42,8 +42,16 @@ K7a or K3; the fused K2 linesearch on ``"tridiag_pallas"`` and
 (``"dense"``, ``"condensed"``, ``"schur"``, ``"schur_pallas"`` → K4b/K4c,
 ``"schur_pallas_gj"`` → K4a, ``"schur_pallas_gjr"`` → K5). The dense tiers
 linearize by ``_make_linearizer``: an affine MCP (the QP benchmark) has its
-Jacobian extracted once per solve. Options that select a path not ported
-yet raise ``NotImplementedError`` naming the ROADMAP item.
+Jacobian extracted once per solve. A banded tier on a game without a row
+time structure linearizes the same way and solves the dense Schur system
+permuted to time-major bands (``linalg.newton_step_tridiag``), as the JAX
+package does.
+
+``tridiag_solver``, a callable (diag, lower, upper, rhs) → x, overrides the
+block-tridiagonal solve of the banded tiers (the horizon-sharded SPIKE solve
+of ``parallel/horizon.py``); the tier still decides everything else, e.g.
+the fused K2 linesearch on ``"tridiag_pallas"``. Options that select a path
+not ported yet raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -67,7 +75,12 @@ from .kernels.block_tridiag import (
 )
 from .kernels.linesearch import _candidate_tensor, linesearch_update
 from .kernels.thomas_dispatch import PALLAS_TIERS, auto_thomas_solve, pallas_thomas_solve
-from .linalg import GMRES_NOT_PORTED, NEWTON_STEPS, factored_newton_solver
+from .linalg import (
+    GMRES_NOT_PORTED,
+    NEWTON_STEPS,
+    factored_newton_solver,
+    newton_step_tridiag,
+)
 from .mcp import PrimalDualMCP
 from .types import FAILED, SOLVED, SolveResult
 
@@ -193,18 +206,20 @@ BANDED_SOLVERS = {
 }
 
 
+def _tridiag_algorithm(options: SolverOptions, tridiag_solver=None):
+    """The block-tridiagonal solve of a banded tier: the override callable
+    ``tridiag_solver`` (e.g. the horizon-sharded SPIKE solve) wins over the
+    tier's own."""
+    return tridiag_solver if tridiag_solver is not None else BANDED_SOLVERS[
+        options.linear_solver]
+
+
 def _check_tier(mcp: PrimalDualMCP, tier: str):
     if tier in BANDED_SOLVERS:
-        st = mcp.time_structure
-        if st is None:
+        if mcp.time_structure is None:
             raise ValueError(
                 "linear_solver='tridiag' requires an MCP with time_structure "
                 "(built by build_parametric_game for trajectory games)."
-            )
-        if st.row_permutation is None:
-            raise NotImplementedError(
-                "the banded tier without a row time structure needs "
-                "tridiag_solve_permuted, not ported yet (ROADMAP Queue 1 item 4)"
             )
     elif tier == "gmres":
         raise NotImplementedError(GMRES_NOT_PORTED)
@@ -220,12 +235,12 @@ def _check_supported(mcp: PrimalDualMCP, options: SolverOptions):
         _check_tier(mcp, options.retry_linear_solver or options.linear_solver)
     if options.verbose:
         raise NotImplementedError(
-            "verbose=True is not ported yet (ROADMAP Queue 1 item 5)"
+            "verbose=True is not ported yet (ROADMAP Queue 1 item 3)"
         )
     if options.matmul_precision != "highest":
         raise NotImplementedError(
             "only matmul_precision='highest' (TF32 off) is ported "
-            "(ROADMAP Queue 1 item 5)"
+            "(ROADMAP Queue 1 item 3)"
         )
 
 
@@ -257,9 +272,12 @@ def ip_solve(
     x0: torch.Tensor,
     y0: torch.Tensor,
     s0: torch.Tensor,
+    tridiag_solver=None,
 ) -> SolveResult:
     """One batched interior-point solve: θ (B, p), x0 (B, n), y0/s0 (B, m).
-    The iterate dtype and device are x0's; θ must match them."""
+    The iterate dtype and device are x0's; θ must match them.
+    ``tridiag_solver`` overrides the banded tiers' block-tridiagonal solve
+    (see the module docstring)."""
     _check_supported(mcp, options)
     for name, a in (("theta", theta), ("y0", y0), ("s0", s0)):
         if a.dtype != x0.dtype or a.device != x0.device:
@@ -285,7 +303,7 @@ def ip_solve(
             stacklevel=2,
         )
     if options.algorithm == "mehrotra":
-        res = _mehrotra_solve_body(mcp, options, theta, x0, y0, s0)
+        res = _mehrotra_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver)
     elif options.algorithm == "hybrid":
         # Phase 1: annealed warm-up to ϵ ≤ hybrid_switch_tol with the final
         # tolerance's regularization and no polish; phase 2: Mehrotra from
@@ -301,17 +319,17 @@ def ip_solve(
             ),
             polish=False,
         )
-        r1 = _ip_solve_body(mcp, warm_options, theta, x0, y0, s0)
-        r2 = _mehrotra_solve_body(mcp, options, theta, r1.x, r1.y, r1.s)
+        r1 = _ip_solve_body(mcp, warm_options, theta, x0, y0, s0, tridiag_solver)
+        r2 = _mehrotra_solve_body(mcp, options, theta, r1.x, r1.y, r1.s, tridiag_solver)
         res = r2._replace(outer_iters=r1.outer_iters + r2.outer_iters)
     else:
-        res = _ip_solve_body(mcp, options, theta, x0, y0, s0)
+        res = _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver)
     for _ in range(int(options.retry)):
-        res = _retry_failed(mcp, options, theta, res)
+        res = _retry_failed(mcp, options, theta, res, tridiag_solver)
     return res
 
 
-def _retry_failed(mcp, options, theta, res: SolveResult) -> SolveResult:
+def _retry_failed(mcp, options, theta, res: SolveResult, tridiag_solver=None) -> SolveResult:
     """One gated retry round: lanes that did not solve re-solve from the
     cold start x = 0, y = s = 1 under the annealed schedule; the other
     lanes' loops are gated off, so when every lane solved the round costs
@@ -333,7 +351,7 @@ def _retry_failed(mcp, options, theta, res: SolveResult) -> SolveResult:
     r2 = _ip_solve_body(
         mcp, retry_options, theta,
         torch.zeros_like(res.x), torch.ones_like(res.y), torch.ones_like(res.s),
-        gate=need,
+        tridiag_solver, gate=need,
     )
     take = need & (r2.status == SOLVED)
 
@@ -372,15 +390,18 @@ def _make_linearizer(mcp: PrimalDualMCP, theta: torch.Tensor, dtype):
     return lambda x, y: vmap(mcp.gh_linearized)(x, y, theta)
 
 
-def _make_step(mcp, options, theta, dtype, reg, lin=None):
+def _make_step(mcp, options, theta, dtype, reg, lin=None, tridiag_solver=None):
     """``step(x, y, s, eps) -> (rG, rH, rC, dx, dy, ds)``: the residual of
     every lane at (x, y, s) and its regularized Newton direction, on the
-    tier of ``options.linear_solver``. A dense tier linearizes by ``lin``
-    (default: a new ``_make_linearizer``)."""
-    if options.linear_solver in BANDED_SOLVERS:
-        st = mcp.time_structure
+    tier of ``options.linear_solver`` (a banded tier's block-tridiagonal
+    solve overridden by ``tridiag_solver``). A dense tier, and a banded tier
+    without a row time structure, linearize by ``lin`` (default: a new
+    ``_make_linearizer``)."""
+    banded = options.linear_solver in BANDED_SOLVERS
+    st = mcp.time_structure
+    if banded and st.row_permutation is not None:
         ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=dtype)
-        tsolve = BANDED_SOLVERS[options.linear_solver]
+        tsolve = _tridiag_algorithm(options, tridiag_solver)
 
         def step(x, y, s, eps):
             with record_function(SPAN_RESIDUAL):
@@ -397,7 +418,11 @@ def _make_step(mcp, options, theta, dtype, reg, lin=None):
 
         return step
     lin = lin or _make_linearizer(mcp, theta, dtype)
-    newton = NEWTON_STEPS[options.linear_solver]
+    if banded:
+        newton = functools.partial(newton_step_tridiag, structure=st,
+                                   algorithm=_tridiag_algorithm(options, tridiag_solver))
+    else:
+        newton = NEWTON_STEPS[options.linear_solver]
 
     def step(x, y, s, eps):
         with record_function(SPAN_RESIDUAL):
@@ -453,14 +478,16 @@ def _kkt(rG, rH, rC):
     return torch.maximum(_absmax(rG), torch.maximum(_absmax(rH), _absmax(rC)))
 
 
-def _ip_solve_body(mcp, options, theta, x0, y0, s0, gate=None) -> SolveResult:
+def _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None,
+                   gate=None) -> SolveResult:
     """The annealed loop. ``gate`` (B,) bool, when given, runs only the lanes
-    it marks; the others come back FAILED with their iterate untouched."""
+    it marks; the others come back FAILED with their iterate untouched. The
+    terminal polish reuses its Newton step (and so ``tridiag_solver``)."""
     B = theta.shape[0]
     dtype, device = x0.dtype, x0.device
     tol = options.tol
     reg = options.regularization if options.regularization is not None else tol
-    step = _make_step(mcp, options, theta, dtype, reg)
+    step = _make_step(mcp, options, theta, dtype, reg, tridiag_solver=tridiag_solver)
     use_fused_ls = (
         options.fused_linesearch
         if options.fused_linesearch is not None
@@ -581,7 +608,7 @@ def _max_step_to_boundary(v: torch.Tensor, dv: torch.Tensor, frac) -> torch.Tens
     return torch.clamp(frac * ratios.amin(dim=1), max=1.0)
 
 
-def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0) -> SolveResult:
+def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None) -> SolveResult:
     """Mehrotra predictor-corrector over a batch.
 
     Per iteration: one Jacobian evaluation and one factorization
@@ -594,20 +621,29 @@ def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0) -> SolveResult:
     (a pure root-find) the annealed loop runs instead."""
     n, m = mcp.unconstrained_dimension, mcp.constrained_dimension
     if m == 0:
-        return _ip_solve_body(mcp, options, theta, x0, y0, s0)
+        return _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver)
     B = theta.shape[0]
     dtype, device = x0.dtype, x0.device
     tol = options.tol
     reg = options.regularization if options.regularization is not None else tol
-    banded = options.linear_solver in BANDED_SOLVERS
+    st = mcp.time_structure
+    tridiag_family = options.linear_solver in BANDED_SOLVERS
+    banded = tridiag_family and st.row_permutation is not None
+    if tridiag_family:
+        tsolve = _tridiag_algorithm(options, tridiag_solver)
     if banded:
-        st = mcp.time_structure
         ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=dtype)
-        tsolve = BANDED_SOLVERS[options.linear_solver]
         lin = None
     else:
         lin = _make_linearizer(mcp, theta, dtype)
-        make_solver = factored_newton_solver(options.linear_solver)
+        if tridiag_family:
+            # No row time structure: the dense Schur system, permuted to
+            # time-major bands, solved afresh per right-hand side.
+            make_solver = lambda Gx, Gy, Hx, Hy, y, s, reg: (
+                lambda bG, bH, bC: newton_step_tridiag(
+                    Gx, Gy, Hx, Hy, y, s, bG, bH, bC, reg, structure=st, algorithm=tsolve))
+        else:
+            make_solver = factored_newton_solver(options.linear_solver)
     refine_steps = int(options.refinement_steps)
     where = torch.where
 
@@ -706,7 +742,8 @@ def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0) -> SolveResult:
         # Mehrotra's own exit tests the pre-step residual; the polish drives
         # the residual at the returned iterate to ≤ tol, with the tier's
         # direct (unfactored) Newton step.
-        step = _make_step(mcp, options, theta, dtype, reg, lin=lin)
+        step = _make_step(mcp, options, theta, dtype, reg, lin=lin,
+                          tridiag_solver=tridiag_solver)
         x, y, s, kkt, failed = _terminal_polish(
             mcp, options, step, theta, x, y, s, failed
         )

@@ -4,7 +4,7 @@ solve of a scenario seeds the primal with a zero-control rollout of the
 dynamics and zero equality duals.
 
 The warm-started receding-horizon strategy is not ported yet (ROADMAP
-Queue 1 item 10).
+Queue 1 item 5).
 """
 
 from __future__ import annotations

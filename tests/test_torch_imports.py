@@ -94,16 +94,16 @@ def test_cpu_dense_solves_build_nothing():
     from mcp_tpu_torch.kernels import _build
     from mcp_tpu_torch.kernels import linear_solve as L
 
-    wrappers = (L.gj_solve, L.gji_solve, L.gauss_solve)
+    wrappers = (L.gj_solve, L.gji_solve, L.gauss_solve, L.pallas_gauss_solve, L.wy_solve)
     before = [w.launches for w in wrappers]
     gen = torch.Generator().manual_seed(0)
     P = torch.randn(3, 5, 5, generator=gen, dtype=torch.float64)
     A = P @ P.mT + 5 * torch.eye(5, dtype=torch.float64)
     b = torch.randn(3, 5, generator=gen, dtype=torch.float64)
-    for w in wrappers:
+    for w in wrappers + (lambda A, b: L.gauss_solve(A[:1], b[:1]),):
         out = w(A, b)
         x = out[0] if isinstance(out, tuple) else out
-        torch.testing.assert_close(A @ x[..., None], b[..., None])
+        torch.testing.assert_close(A[: len(x)] @ x[..., None], b[: len(x), :, None])
     problem = qp.generate_test_problem(num_primals=4, num_inequalities=3, device="cpu")
     th = qp.generate_parameter_batch(gen, 2, num_primals=4, num_inequalities=3,
                                      sparsity_rate=0.0, dtype=torch.float64, device="cpu")
@@ -221,3 +221,43 @@ def test_cpu_gradient_through_the_two_way_sweep_builds_nothing():
     assert g.shape == th.shape and bool(torch.isfinite(g).all())
     assert babe_thomas_solve.launches == before
     assert not _build._LIBS
+
+
+def test_new_modules_are_scanned():
+    """The modules of the horizon-sharded and one-instance paths are among
+    the files the import scan covers."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("parallel/mesh.py", "parallel/horizon.py", "bench/horizon.py",
+                "kernels/thomas_multi.py", "kernels/linear_solve.py", "games.py"):
+        assert f"mcp_tpu_torch/{mod}" in names
+
+
+def test_mesh_entry_points_default_to_cuda(tmp_path):
+    """A mesh computes on the card unless the caller asks for the CPU; a
+    one-rank CPU mesh runs the SPIKE path at D = 1 (the plain block-Thomas
+    solve's result)."""
+    import torch.distributed as dist
+
+    from mcp_tpu_torch.kernels.block_tridiag import block_thomas_solve
+    from mcp_tpu_torch.parallel.horizon import horizon_sharded_tridiag_solve, make_horizon_mesh
+    from mcp_tpu_torch.parallel.mesh import initialize_distributed, make_batch_mesh
+
+    initialize_distributed(backend="gloo", init_method=f"file://{tmp_path}/rendezvous",
+                           world_size=1, rank=0)
+    try:
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="cuda"):
+                make_horizon_mesh()
+            with pytest.raises(RuntimeError, match="cuda"):
+                make_batch_mesh()
+        mesh = make_horizon_mesh(device="cpu")
+        assert mesh.shape == (1,) and mesh.coords == (0,)
+        gen = torch.Generator().manual_seed(0)
+        diag = torch.randn(2, 4, 3, 3, generator=gen, dtype=torch.float64) + 4 * torch.eye(3)
+        lower, upper = torch.randn(2, 2, 3, 3, 3, generator=gen, dtype=torch.float64)
+        rhs = torch.randn(2, 4, 3, generator=gen, dtype=torch.float64)
+        x = horizon_sharded_tridiag_solve(diag, lower, upper, rhs, mesh=mesh)
+        torch.testing.assert_close(x, block_thomas_solve(diag, lower, upper, rhs),
+                                   rtol=0, atol=1e-12)
+    finally:
+        dist.destroy_process_group()

@@ -253,5 +253,5 @@ def test_schur_matrix_is_spd_on_qp_systems():
 
 def test_gmres_is_not_ported():
     assert "gmres" not in linalg.NEWTON_STEPS
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         linalg.factored_newton_solver("gmres")

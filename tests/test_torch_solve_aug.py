@@ -167,5 +167,5 @@ def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
     after = {n: _build.library_path(n) for n in _build.SOURCES}
     users = {n for n in _build.SOURCES if '#include "solve_aug.cuh"'
              in (csrc / f"{n}.cu").read_text()}
-    assert users == {"thomas", "thomas_babe", "cyclic_reduction"}
+    assert users == {"thomas", "thomas_babe", "cyclic_reduction", "thomas_multi"}
     assert {n for n in _build.SOURCES if before[n] != after[n]} == users
