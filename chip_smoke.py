@@ -40,9 +40,11 @@ certifies each result with the true KKT residual, checks a few lanes
 against a float64 CPU reference, checks the training gradient against
 finite differences (float64) and against the CPU's float64 gradient, times
 each kernel (and each fact) beside its bound, its plain version and a
-library call, compares K3's refined facts gjpr, gjbpr and gjbprl in turns
-on the N=10 bands, profiles one batch of each path (the first Newton steps of the N=10
-batch) and one train step, and
+library call, times K3 and K8a (thread-block-cluster kernels) with their
+launch plans and against other cluster sizes in turns, compares K3's
+refined facts gjpr, gjbpr and gjbprl in turns on the N=10 bands, profiles
+one batch of each path (the first Newton steps of the N=10 batch) and one
+train step, and
 prints as its last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -1216,8 +1218,8 @@ def fact_check(kernel, fact, what, args, tol=K3_TOL):
 
 def phase_k3(real_lane_bands, n4, n10, device):
     """K3 against its plain version on the card: the first Newton step's
-    bands of each flagship (gjp at N=4 in float32 and float64, gjpr at N=10
-    in float32; float64 at b=100 does not fit a block and is refused),
+    bands of each flagship (gjp at N=4, gjpr at N=10, each in float32 and
+    float64; b=100 in float64 runs on clusters of column slabs),
     diagonally dominant random bands, qr on the lane-change bands (tier
     "tridiag_pallas_cr") and at T=64, and a singular block. Returns
     ({fact: N=4/N=10 float32 bands}, {fact: max abs error on them})."""
@@ -1230,14 +1232,6 @@ def phase_k3(real_lane_bands, n4, n10, device):
     for s, fact in ((n4, "gjp"), (n10, "gjpr")):
         for dtype in (f32, f64):
             real = first_newton_bands(s.mcp, s.thetas.to(dtype), s.x0.to(dtype))
-            b = real[0].shape[-1]
-            if dtype == f64 and b > 64:
-                try:
-                    cr_thomas_solve(*real, fact=fact)
-                except ValueError as exc:
-                    log(f"  K3 {fact} b={b} float64 refused as expected: {exc}")
-                    continue
-                raise PhaseFailed(f"K3 {fact}: b={b} float64 was not refused")
             shape = "x".join(map(str, real[0].shape[:3]))
             err = fact_check("cr", fact, f"first Newton step ({shape})", real)
             if dtype == f32:
@@ -1409,9 +1403,64 @@ def dense_block_system(diag, lower, upper, rhs):
     return A, rhs.reshape(Bn, T * b, 1).contiguous()
 
 
+# The times of K3 and K8a as one thread block per system, before their
+# cluster redesign (NVIDIA H100 80GB HBM3, 700 W, float32; PERF.md §6): K3
+# gjp at (8, 30, 40), K3 gjpr at (8, 30, 100), K8a at (1, 200) and
+# torch.linalg.solve there.
+SINGLE_BLOCK_MS = {"cr_thomas_solve[gjp]": 0.7373, "cr_thomas_solve[gjpr]": 6.1358,
+          "pallas_gauss_solve": 1.6902, "pallas_gauss_solve library": 0.5024}
+
+
+def cr_plan_fields(args, fact):
+    """K3's launch plan for ``args`` as ``kernels`` fields: the cluster
+    size, threads and shared memory per CTA of each level's launch and of
+    the base's."""
+    from mcp_tpu_torch.kernels.cyclic_reduction import cr_plan
+
+    Bn, T, b, _ = args[0].shape
+    plan = cr_plan(Bn, T, b, fact, args[0].dtype)
+    return {"cluster": [lp.cluster for lp in plan.launches], "threads": plan.base.threads,
+            "smem_per_cta": [lp.smem_per_cta for lp in plan.launches]}
+
+
+@contextlib.contextmanager
+def uniform_cr_plan(cluster):
+    """While active, K3 launches every level and the base on clusters of
+    ``cluster`` CTAs (the plan's slab rule at that size), for an A/B of the
+    plan; raises ValueError where a slab does not fit."""
+    import torch
+
+    from mcp_tpu_torch.kernels import cyclic_reduction as K3
+    from mcp_tpu_torch.kernels.solve_aug import FACT_CODES, SMEM_LIMIT
+
+    def plan(Bn, T, b, fact, dtype):
+        family, refine = FACT_CODES[fact]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        shapes = K3._level_shapes(T)
+        widths = [3 * b + 1 + (b if refine else 0)] * len(shapes) + [b + 1 + (b if refine else 0)]
+        launches = []
+        for ld, nsys in zip(widths, [H * Bn for H in shapes] + [Bn]):
+            bounds = K3.slab_bounds(ld, cluster, b, family >= 3)
+            if bounds is None:
+                raise ValueError(f"no slabs of {ld} columns over {cluster} CTAs")
+            wsmax = max(hi - lo for lo, hi in zip(bounds, bounds[1:]))
+            smem = K3.slab_smem_bytes(b, wsmax, family, refine, itemsize)
+            if smem > SMEM_LIMIT:
+                raise ValueError(f"a slab of {wsmax} columns needs {smem} bytes")
+            launches.append(K3.SlabPlan(cluster, K3.THREADS, bounds, smem, nsys))
+        return K3.CRPlan(tuple(launches[:-1]), launches[-1])
+
+    orig, K3.cr_plan = K3.cr_plan, plan
+    try:
+        yield
+    finally:
+        K3.cr_plan = orig
+
+
 def phase_k3_timing(bands, errs, n4_launches, n10_launches):
     """K3 at both flagship shapes beside its bound, its plain version and a
-    dense torch.linalg.solve of the same system."""
+    dense torch.linalg.solve of the same system, with its launch plan; then
+    the plan against uniform cluster sizes at each shape, in turns."""
     import torch
 
     from mcp_tpu_torch.kernels.cyclic_reduction import cr_solve_plain, cr_thomas_solve
@@ -1435,13 +1484,28 @@ def phase_k3_timing(bands, errs, n4_launches, n10_launches):
             "plain_ms": cuda_ms(lambda: cr_solve_plain(*args, fact), 3),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(lambda: torch.linalg.solve(A, r), 5),
+            **cr_plan_fields(args, fact),
         }
         kernels.append(entry)
-        log(f"  K3 {fact} {shape} ({Bn},{T},{b}): {entry['ms']:.4f} ms (plain "
-            f"{entry['plain_ms']:.3f} ms, bound {b_ms:.5f} ms by {b_by} [{flops / 1e9:.3f} "
-            f"GFLOP, {nbytes / 1e6:.2f} MB], dense solve {entry['library_ms']:.3f} ms); "
-            f"launches {lau} in the path window: {lau / max(solves // FLAG_B, 1):.2f} per "
-            f"batch, {lau / solves:.3f} per solve")
+        log(f"  K3 {fact} {shape} ({Bn},{T},{b}): {entry['ms']:.4f} ms (one block per system: "
+            f"{SINGLE_BLOCK_MS[entry['name']]} ms; plain {entry['plain_ms']:.3f} ms, bound {b_ms:.5f} ms "
+            f"by {b_by} [{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB], dense solve "
+            f"{entry['library_ms']:.3f} ms); clusters per launch {entry['cluster']}, shared "
+            f"memory per CTA {entry['smem_per_cta']}; launches {lau} in the path window: "
+            f"{lau / max(solves // FLAG_B, 1):.2f} per batch, {lau / solves:.3f} per solve")
+        # The plan against one cluster size for every launch, in turns.
+        ab = {"plan": []}
+        for c in (None, 1, 2, 8, 8, 2, 1, None):
+            key = "plan" if c is None else c
+            try:
+                with (contextlib.nullcontext() if c is None else uniform_cr_plan(c)):
+                    ab.setdefault(key, []).append(
+                        cuda_ms(lambda: cr_thomas_solve(*args, fact=fact), 10))
+            except ValueError as exc:
+                ab[key] = f"does not fit: {exc}"
+        entry["uniform_cluster_ms"] = {str(k): v for k, v in ab.items() if k != "plan"}
+        log(f"  K3 {fact} {shape} plan A/B in turns (ms): " + "; ".join(
+            f"{k}: {v}" for k, v in ab.items()))
     return kernels
 
 
@@ -1777,14 +1841,13 @@ def phase_fact_kernels(n4, n10, device):
     """Every Gauss–Jordan fact of K1′, K7a and K3 against its plain version
     on the card, in float32 and float64: the lane-change first-Newton bands
     (K1′ and K3), the N=4 first-Newton bands (K7a and K3), the N=10 bands
-    (K3, float32; float64 at b=100 is refused), random bands (K1′ at
+    (K3; gjbpr also in float64), random bands (K1′ at
     (256, 10, 20) and (3, 7, 5); K7a at T = 21 and 29, where the right chain
     of the JAX package starts on its identity pad). Returns ({shape: float32
     bands}, {(kernel, fact): max abs error on the float32 bands of the
     fact's path})."""
     import torch
 
-    from mcp_tpu_torch.kernels import cyclic_reduction as C
     from mcp_tpu_torch.kernels.solve_aug import FACTS
 
     f32, f64 = torch.float32, torch.float64
@@ -1822,12 +1885,10 @@ def phase_fact_kernels(n4, n10, device):
     for fact in FACTS:
         if fact not in ("qr", "gjp", "gjpr"):
             check_fact("cr", fact, f"N=10 first Newton step ({shape(n10b)})", n10b)
-    try:
-        C.cr_thomas_solve(*(a.double() for a in n10b), fact="gjbpr")
-    except ValueError as exc:
-        log(f"  K3 gjbpr b=100 float64 refused as expected: {exc}")
-    else:
-        raise PhaseFailed("K3 gjbpr: b=100 float64 was not refused")
+    # b=100 in float64 (clusters of column slabs), held by K3's rule as
+    # phase 13 holds gjpr there.
+    fact_check("cr", "gjbpr", f"N=10 first Newton step ({shape(n10b)})",
+               tuple(a.double() for a in n10b))
     return bands, errs
 
 
@@ -1943,6 +2004,7 @@ def phase_fact_timing(bands, errs, launches, device):
             "ms": cuda_ms(lambda: fact_solver(kernel, fact)(*args), 20),
             "plain_ms": cuda_ms(lambda: fact_solver(kernel, fact, plain=True)(*args), 2),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[key],
+            **(cr_plan_fields(args, fact) if kernel == "cr" else {}),
         }
         kernels.append(entry)
         log(f"  {entry['name']} ({Bn},{T},{b}): {entry['ms']:.4f} ms (plain "
@@ -2274,8 +2336,8 @@ def phase_single(device, schur):
     a time, float32, with K8a's and K4b's counts set to 0 just before and
     read just after; statuses against the CPU's float64 plain run on the
     same θ; then K8a against its plain version at both problems' Schur
-    systems. Returns (K8a launches, the lane-change f32 Schur system, the
-    max abs error there)."""
+    systems in float32 and float64. Returns (K8a launches, the lane-change
+    f32 Schur system, the max abs error there)."""
     import torch
 
     from mcp_tpu_torch import auto_tightening_rate, solve, solve_game
@@ -2334,6 +2396,14 @@ def phase_single(device, schur):
     k8a = ("pallas_gauss_solve", L.pallas_gauss_solve, L.qr_solve_sep_plain)
     err = dense_check(f"{k8a[0]} lane-change Schur system (1,200) float32", *k8a[1:],
                       lane_A, lane_b)
+    # The same system in float64 (a cluster of 8 CTAs holds A in slabs).
+    f64 = torch.float64
+    zeros64, ones64 = zeros.to(f64), ones.to(f64)
+    g, h, Gx, Gy, Hx, _ = _make_linearizer(mcp, th.to(f64), f64)(zeros64, ones64)
+    lane_A64, lane_b64, *_ = _schur_system(Gx, Gy, Hx, ones64, ones64, g, h - ones64,
+                                           ones64 - 1.0, HEADLINE["tol"])
+    dense_check(f"{k8a[0]} lane-change Schur system (1,200) float64", *k8a[1:],
+                lane_A64.contiguous(), lane_b64.contiguous())
     for dt in (torch.float32, torch.float64):
         dense_check(f"{k8a[0]} QP Schur system (1,100) {str(dt)[6:]}", *k8a[1:],
                     schur[0][:1].to(dt).contiguous(), schur[1][:1].to(dt).contiguous())
@@ -2406,6 +2476,24 @@ def wy_counts(Bn, n, nb=8, itemsize=4):
     return Bn * (n * n + 2 * n) * itemsize, Bn * flops
 
 
+def sep_plan_of(n, dtype, cluster):
+    """K8a's plan for order n on clusters of ``cluster`` CTAs (the plan's
+    even spread of whole panels), for the cluster-size sweep."""
+    import torch
+
+    from mcp_tpu_torch.kernels import linear_solve as L
+
+    per, extra = divmod(-(-n // L.QR_SEP_PANEL), cluster)
+    bounds = [0]
+    for r in range(cluster):
+        bounds.append(min(n, bounds[-1] + L.QR_SEP_PANEL * (per + (r < extra))))
+    wsmax = max(hi - lo for lo, hi in zip(bounds, bounds[1:]))
+    smem = L._qr_sep_smem_bytes(n, wsmax, torch.empty((), dtype=dtype).element_size())
+    if smem > 232448 or per == 0:
+        raise ValueError(f"n={n} on {cluster} CTAs needs {smem} bytes per CTA")
+    return L.SepPlan(cluster, 256, tuple(bounds), smem)
+
+
 def phase_new_timing(k6, k8a, k8b):
     """K6, K8a and K8b at their paths' shapes beside their bounds, their
     plain versions and one batched torch.linalg.solve of the same function
@@ -2433,14 +2521,34 @@ def phase_new_timing(k6, k8a, k8b):
     (A, b), err, launches = k8a
     nbytes, flops = sep_counts(A.shape[0], A.shape[1])
     b_ms, b_by = bound(nbytes, flops)
+    plan = L.qr_sep_plan(A.shape[1], A.dtype)
+    k8a_ms = cuda_ms(lambda: L.pallas_gauss_solve(A, b), 50)
+    lib_ms = cuda_ms(lambda: torch.linalg.solve(A, b[..., None]), 20)
+    # The plan's cluster against the others, in turns.
+    sweep = {}
+    orig = L.qr_sep_plan
+    for c in (1, 2, 4, 8, 8, 4, 2, 1):
+        L.qr_sep_plan = lambda n, dtype, c=c: sep_plan_of(n, dtype, c)
+        try:
+            sweep.setdefault(str(c), []).append(cuda_ms(lambda: L.pallas_gauss_solve(A, b), 20))
+        except ValueError as exc:
+            sweep[str(c)] = f"does not fit: {exc}"
+        finally:
+            L.qr_sep_plan = orig
     kernels.append({
         "name": "pallas_gauss_solve", "route": "cuda",
         "source": "mcp_tpu_torch/kernels/csrc/qr_sep.cu",
         "replaces": "mcp_tpu/kernels/linear_solve.py:38", "launches": launches,
-        "max_abs_err": err, "ms": cuda_ms(lambda: L.pallas_gauss_solve(A, b), 50),
+        "max_abs_err": err, "ms": k8a_ms,
         "plain_ms": cuda_ms(lambda: L.qr_solve_sep_plain(A, b), 3),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.linalg.solve(A, b[..., None]), 20)})
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "cluster": plan.cluster, "threads": plan.threads, "smem_per_cta": plan.smem_per_cta,
+        "cluster_ms": sweep})
+    log(f"  K8a (1,{A.shape[1]}) float32: {k8a_ms:.4f} ms against torch.linalg.solve "
+        f"{lib_ms:.4f} ms in this run (one block per system: {SINGLE_BLOCK_MS['pallas_gauss_solve']} ms "
+        f"against {SINGLE_BLOCK_MS['pallas_gauss_solve library']} ms); cluster {plan.cluster}, slabs "
+        f"{plan.bounds}, shared memory per CTA {plan.smem_per_cta}; by cluster size in turns "
+        f"(ms): {sweep}")
     (A, b), err, launches = k8b
     nbytes, flops = wy_counts(A.shape[0], -(-A.shape[1] // 8) * 8)
     b_ms, b_by = bound(nbytes, flops)

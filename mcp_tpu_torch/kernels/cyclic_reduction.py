@@ -31,17 +31,24 @@ finite values in that system); a zero QR pivot gives inf/NaN.
 
 A CUDA tensor launches the hand-written kernel ``csrc/cyclic_reduction.cu``
 or raises; a CPU tensor runs ``cr_solve_plain``, the same algebra in batched
-PyTorch ops. ``cr_thomas_solve.launches`` counts the solves that launched
-the kernel, per factorization (a dict keyed by ``fact``).
+PyTorch ops. On the card every odd-block solve runs on a thread block
+cluster whose CTAs hold column slabs of the block's working matrix; the
+launch plan (cluster size per level, slab bounds, shared memory per CTA)
+comes from ``cr_plan``, a plain function of the shapes. A shape whose slab
+does not fit a block even in a cluster of 8 raises ``ValueError``.
+``cr_thomas_solve.launches`` counts the solves that launched the kernel, per
+factorization (a dict keyed by ``fact``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
-from .solve_aug import FACT_CODES, FACTS, SMEM_LIMIT, aug_smem_bytes, solve_aug_plain
+from .solve_aug import FACT_CODES, FACTS, GJB_PANEL, SMEM_LIMIT, solve_aug_plain
 from .thomas import _batch_stride, _check
 
 Tensor = torch.Tensor
@@ -93,19 +100,156 @@ def cr_solve_plain(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor,
     return _cr(diag, Lp, Up, rhs[..., None], b, fact)[..., 0]
 
 
-def check_fits(b: int, fact: str, dtype):
-    """Raise when the kernel cannot hold one odd-block solve in a block's
-    shared memory (every fact at b=100 in float64): the working set of
-    ``csrc/solve_aug.cuh`` for [D | L | U | r] (plus I with refinement) with
-    a one-column scratch slab (``aug_smem_bytes``)."""
+#: The largest cluster (the portable maximum) and the threads of a CTA.
+MAX_CLUSTER = 8
+THREADS = 256
+#: A working matrix wider than this many columns is split over a cluster:
+#: a cluster barrier per elimination step costs more than a narrow slab
+#: saves (``chip_smoke.py`` times the plan against uniform cluster sizes at
+#: b=40 and b=100).
+WIDE_SLAB = 256
+#: At most this many solves per launch take the largest cluster.
+FEW_SYSTEMS = 16
+#: Rows of the left operand the products stage per pass (``kKT`` of
+#: ``csrc/solve_aug_slab.cuh``).
+_STAGE_ROWS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabPlan:
+    """One launch: clusters of ``cluster`` CTAs of ``threads`` threads, CTA
+    r holding columns ``bounds[r]:bounds[r+1]`` of the working matrix (all
+    b rows), ``smem_per_cta`` bytes of dynamic shared memory in each, on a
+    grid of ``grid`` clusters."""
+
+    cluster: int
+    threads: int
+    bounds: tuple
+    smem_per_cta: int
+    grid: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CRPlan:
+    """K3's launches: one per reduction level, then the T=1 base."""
+
+    levels: tuple
+    base: SlabPlan
+
+    @property
+    def launches(self):
+        return self.levels + (self.base,)
+
+
+def slab_smem_bytes(b: int, lds: int, family: int, refine: int, itemsize: int) -> int:
+    """Shared-memory bytes of one CTA's working set (``slab_bytes`` of
+    ``csrc/solve_aug_slab.cuh``): the slab (b × lds), two step buffers, the
+    pivot rows, used flags and scalars, W (blocked facts), the scratch
+    (blocked facts and refinement: kPanel × max(lds, b)), the staged left
+    operand of the products (16 × b) and the pivot rows (ints)."""
+    blocked = family >= 3
+    scratch = GJB_PANEL * max(lds, b) if (blocked or refine) else 0
+    elems = (b * lds + 2 * (b + 2) + max(lds, GJB_PANEL) + GJB_PANEL + b + 4
+             + (b * GJB_PANEL if blocked else 0) + scratch + _STAGE_ROWS * b)
+    return itemsize * elems + 4 * b
+
+
+def slab_bounds(ld: int, C: int, b: int, blocked: bool):
+    """The C + 1 slab bounds of ld columns, as even as the rule allows: for
+    the blocked facts a bound inside the head (< b) sits on a multiple of
+    the panel width, so no panel straddles two slabs. None when two bounds
+    meet."""
+    bounds = [0]
+    for r in range(1, C):
+        x = (2 * r * ld + C) // (2 * C)
+        if blocked and x < b:
+            x = GJB_PANEL * max(1, (2 * x + GJB_PANEL) // (2 * GJB_PANEL))
+        bounds.append(x)
+    bounds.append(ld)
+    if any(hi <= lo for lo, hi in zip(bounds, bounds[1:])):
+        return None
+    return tuple(bounds)
+
+
+def _launch_plan(nsys: int, b: int, ld: int, family: int, refine: int, itemsize: int):
+    """The launch of ``nsys`` solves of b × ld: one CTA per solve when the
+    working matrix is at most ``WIDE_SLAB`` columns wide, else clusters of
+    2, or of 8 for at most ``FEW_SYSTEMS`` solves (which leave most of the
+    card's SMs idle otherwise); the smallest cluster from there up whose
+    widest slab fits the shared memory of a block. None when no cluster of
+    ≤ MAX_CLUSTER holds a slab."""
+    want = 1 if ld <= WIDE_SLAB else (MAX_CLUSTER if nsys <= FEW_SYSTEMS else 2)
+    C = 1
+    while C <= MAX_CLUSTER:
+        bounds = slab_bounds(ld, C, b, family >= 3)
+        if C >= want and bounds is not None:
+            wsmax = max(hi - lo for lo, hi in zip(bounds, bounds[1:]))
+            smem = slab_smem_bytes(b, wsmax, family, refine, itemsize)
+            if smem <= SMEM_LIMIT:
+                return SlabPlan(C, THREADS, bounds, smem, nsys)
+        C *= 2
+    return None
+
+
+def _level_shapes(T: int):
+    """Pairs H of each reduction level (T = 30 → 15, 8, 4, 2, 1)."""
+    out, t = [], T
+    while t > 1:
+        H = (t + (t & 1)) // 2
+        out.append(H)
+        t = H
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan(B, T, b, fact, itemsize):
     family, refine = FACT_CODES[fact]
-    nc = 3 * b + 1 + (b if refine else 0)
-    need = aug_smem_bytes(b, nc, family, 1, torch.empty((), dtype=dtype).element_size())
-    if need > SMEM_LIMIT:
+    nc_red = 3 * b + 1 + (b if refine else 0)
+    nc_base = b + 1 + (b if refine else 0)
+    levels = []
+    for H in _level_shapes(T):
+        lp = _launch_plan(H * B, b, nc_red, family, refine, itemsize)
+        if lp is None:
+            return None
+        levels.append(lp)
+    base = _launch_plan(B, b, nc_base, family, refine, itemsize)
+    return None if base is None else CRPlan(tuple(levels), base)
+
+
+def cr_plan(B: int, T: int, b: int, fact: str, dtype) -> CRPlan:
+    """K3's launch plan for B systems of T blocks of b with ``fact``: per
+    level (H·B odd-block solves of b × (3b+1), plus b identity columns with
+    refinement) and for the base (B solves of b × (b+1)), the cluster size
+    C ∈ {1, 2, 4, 8} of ``_launch_plan``, whose widest slab fits the card's
+    232,448 bytes of shared memory per block. Raises ``ValueError`` when
+    none does."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = _cached_plan(B, T, b, fact, itemsize)
+    if plan is None:
         raise ValueError(
-            f"cr_thomas_solve: fact={fact!r} at b={b} in {dtype} needs {need} bytes "
-            f"of shared memory, over the card's {SMEM_LIMIT} per block"
+            f"cr_thomas_solve: fact={fact!r} at b={b} in {dtype} does not fit the card's "
+            f"{SMEM_LIMIT} bytes of shared memory per block even in a cluster of "
+            f"{MAX_CLUSTER}"
         )
+    return plan
+
+
+def check_fits(b: int, fact: str, dtype):
+    """Raise ``ValueError`` when no cluster of ≤ 8 CTAs holds an odd-block
+    solve of b × (3b+1) (plus b identity columns with refinement) with
+    ``fact`` in slabs of the card's shared memory per block."""
+    cr_plan(1, 2, b, fact, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan: CRPlan):
+    """The plan as the C entry reads it: per launch C, threads, shared
+    memory per CTA and the C + 1 bounds, padded to 12 ints."""
+    flat = []
+    for lp in plan.launches:
+        rec = [lp.cluster, lp.threads, lp.smem_per_cta, *lp.bounds]
+        flat += rec + [0] * (3 + MAX_CLUSTER + 1 - len(rec))
+    return (ctypes.c_int * len(flat))(*flat)
 
 
 def cr_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
@@ -121,17 +265,18 @@ def cr_thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
     if diag.device.type != "cuda":
         raise ValueError(f"cr_thomas_solve runs on cuda or cpu, not {diag.device}")
     B, T, b, _ = diag.shape
-    check_fits(b, fact, diag.dtype)
     x = torch.empty_like(rhs)
     if B == 0:
+        check_fits(b, fact, diag.dtype)
         return x
+    plan = cr_plan(B, T, b, fact, diag.dtype)
     lib = _lib()
     work = torch.empty(lib.mcp_cr_workspace(B, T, b), dtype=diag.dtype, device=diag.device)
     with torch.cuda.device(diag.device):
         err = lib.mcp_cr_solve(
             0 if diag.dtype == torch.float32 else 1, *FACT_CODES[fact],
             diag.data_ptr(), lower.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
-            work.data_ptr(), x.data_ptr(), B, T, b, lower_bs, upper_bs,
+            work.data_ptr(), x.data_ptr(), B, T, b, lower_bs, upper_bs, _plan_ints(plan),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -152,6 +297,6 @@ def _lib():
         lib.mcp_cr_workspace.argtypes = [ci, ci, ci]
         lib.mcp_cr_workspace.restype = ll
         lib.mcp_cr_solve.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ll, ll,
-                                     vp]
+                                     ctypes.POINTER(ci), vp]
         lib.mcp_cr_solve.restype = ci
     return lib

@@ -17,7 +17,11 @@ float32 or float64.
   kept apart from A, α = −sign(v_k)‖v‖ (‖v‖ = sqrt(v·v + eps)), u = v − α e_k,
   β = 2/(u·u + eps) (0 when u·u ≤ eps), A ← A − βu(uᵀA), b ← b − β(u·b)u,
   then back substitution with the raw R diagonal (K8a; replaces
-  ``::_qr_solve_kernel``). The JAX package reaches it by an unbatched
+  ``::_qr_solve_kernel``). On the card one thread block cluster solves one
+  system, its CTAs holding column slabs of whole panels of
+  ``QR_SEP_PANEL`` columns; each panel's reflections go to the other
+  slabs as one compact-WY block reflector (``qr_sep_plan``, and the
+  source's header). The JAX package reaches it by an unbatched
   ``gauss_solve``, i.e. every one-instance solve on "schur_pallas"; this
   port's one-instance solve is a batch of one, so ``gauss_solve`` routes
   B = 1 here. (A vmapped batch of one goes to K4c in the JAX package: the
@@ -53,6 +57,7 @@ launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -205,10 +210,57 @@ def _smem_bytes(n: int, cols: int, itemsize: int) -> int:
     return itemsize * (n * cols + n + cols + 1)
 
 
-def _qr_sep_smem_bytes(n: int, itemsize: int) -> int:
-    """K8a's shared memory (``csrc/qr_sep.cu``): A (row stride n+1), b, u,
-    w (n+1 entries: uᵀA and u·b) and four scalars."""
-    return itemsize * (n * (n + 1) + 3 * n + 1 + 4)
+#: K8a's panel width (``kNb`` of ``csrc/qr_sep.cu``) and its largest cluster
+#: (the portable maximum).
+QR_SEP_PANEL = 8
+MAX_CLUSTER = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class SepPlan:
+    """K8a's launch for one system of order n: ``cluster`` CTAs of
+    ``threads`` threads, CTA r owning columns ``bounds[r]:bounds[r+1]``
+    (whole panels; the last CTA also holds b), ``smem_per_cta`` bytes of
+    dynamic shared memory in each."""
+
+    cluster: int
+    threads: int
+    bounds: tuple
+    smem_per_cta: int
+
+
+def _qr_sep_smem_bytes(n: int, wsmax: int, itemsize: int) -> int:
+    """K8a's shared memory per CTA (``sep_elems`` of ``csrc/qr_sep.cu``):
+    the slab (n rows, row stride odd and above ``wsmax`` + 1 for b), U
+    and T twice (double-buffered), the two panel-row products W, larft's
+    Uᵀu and β, the right-hand side and one 32-column chunk of x."""
+    nb = QR_SEP_PANEL
+    lda = (wsmax + 1) | 1
+    return itemsize * (n * lda + 2 * n * (nb + 1) + 2 * nb * nb + 2 * nb * lda + nb * nb
+                       + nb + n + 32)
+
+
+def qr_sep_plan(n: int, dtype) -> SepPlan:
+    """K8a's cluster plan for order n: C = 8 CTAs from 16 panels of
+    ``QR_SEP_PANEL`` columns on (n ≥ 121), 4 from 8, 2 from 4, else 1, the
+    panels spread evenly with the extra ones on the first CTAs. Raises
+    ``ValueError`` when a slab does not fit the card's shared memory per
+    block even with C = 8."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    npan = -(-n // QR_SEP_PANEL)
+    C = next(c for c in (8, 4, 2, 1) if npan >= 2 * c or c == 1)
+    per, extra = divmod(npan, C)
+    bounds = [0]
+    for r in range(C):
+        bounds.append(min(n, bounds[-1] + QR_SEP_PANEL * (per + (r < extra))))
+    wsmax = max(bounds[r + 1] - bounds[r] for r in range(C))
+    need = _qr_sep_smem_bytes(n, wsmax, itemsize)
+    if need > _SMEM_LIMIT:
+        raise ValueError(
+            f"pallas_gauss_solve: n={n} in {dtype} needs {need} bytes of shared memory "
+            f"per CTA in a cluster of {C}, over the card's {_SMEM_LIMIT} per block"
+        )
+    return SepPlan(C, 256, tuple(bounds), need)
 
 
 def _wy_smem_bytes(n: int, panel: int, itemsize: int) -> int:
@@ -304,13 +356,19 @@ def pallas_gauss_solve(A: Tensor, b: Tensor) -> Tensor:
     _check("pallas_gauss_solve", A, b)
     if A.device.type == "cpu":
         return qr_solve_sep_plain(A, b)
-    n = A.shape[-1]
-    _check_fits("pallas_gauss_solve", n, n + 1, A.dtype,
-                _qr_sep_smem_bytes(n, A.element_size()))
+    B, n, _ = A.shape
+    plan = qr_sep_plan(n, A.dtype) if n else None
     x = torch.empty_like(b)
-    if A.shape[0] and n:
-        _launch("qr_sep", "mcp_qr_sep_solve", pallas_gauss_solve, A,
-                [A.data_ptr(), b.data_ptr(), x.data_ptr()])
+    if B and n:
+        bounds = (ctypes.c_int * (plan.cluster + 1))(*plan.bounds)
+        with torch.cuda.device(A.device):
+            err = _entry("qr_sep", "mcp_qr_sep_solve")(
+                0 if A.dtype == torch.float32 else 1, A.data_ptr(), b.data_ptr(),
+                x.data_ptr(), B, n, plan.cluster, bounds, plan.smem_per_cta,
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"mcp_qr_sep_solve launch failed: CUDA error {err}")
+        pallas_gauss_solve.launches += 1
     return x
 
 
@@ -354,8 +412,12 @@ def _entry(lib: str, symbol: str):
     fn = getattr(load(lib), symbol)
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        nptr = 4 if lib == "gauss_jordan" else 3
-        fn.argtypes = ([ci] + [vp] * nptr + [ci, ci]
-                       + ([ci] if lib == "wy_qr" else []) + [vp])
+        if lib == "qr_sep":
+            fn.argtypes = [ci, vp, vp, vp, ci, ci, ci, ctypes.POINTER(ci), ctypes.c_longlong,
+                           vp]
+        else:
+            nptr = 4 if lib == "gauss_jordan" else 3
+            fn.argtypes = ([ci] + [vp] * nptr + [ci, ci]
+                           + ([ci] if lib == "wy_qr" else []) + [vp])
         fn.restype = ctypes.c_int
     return fn

@@ -137,16 +137,54 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_no_launch():
 
 
 def test_shared_memory_plan_refuses_what_a_block_cannot_hold():
-    """The card's kernel keeps one odd-block solve in shared memory: the
-    flagship shapes fit in float32 (and b=40 in float64); b=100 in float64
-    does not, and the wrapper refuses it instead of falling back."""
+    """The card's kernel splits each odd-block solve over a cluster of at
+    most 8 CTAs, each holding a column slab in its shared memory: the
+    flagship shapes fit in both dtypes, b=100 in float64 included; b=300 in
+    float64 does not fit even in slabs of a cluster of 8, and the wrapper
+    refuses it instead of falling back."""
     for b, fact, dtype in ((40, "gjp", torch.float32), (40, "gjp", torch.float64),
                            (40, "gjpr", torch.float64), (100, "gjpr", torch.float32),
                            (100, "qr", torch.float32), (20, "qr", torch.float64)):
         C.check_fits(b, fact, dtype)
     for fact in FACTS:
+        C.check_fits(100, fact, torch.float64)
         with pytest.raises(ValueError, match="shared memory"):
-            C.check_fits(100, fact, torch.float64)
+            C.check_fits(300, fact, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fact", SA.FACTS)
+@pytest.mark.parametrize("b", [20, 40, 50, 60, 64, 100])
+def test_cluster_plan_covers_every_column_and_fits(b, fact, dtype):
+    """K3's launch plan at the block sizes the routes reach (the lane change
+    b=20, N=4 b=40, the padded sweeps' 50-64, N=10 b=100), at the flagship
+    (8, 30), the path-B (256, 10) and the T=64 (1, 64) shapes: per level and
+    for the base a cluster of 1, 2, 4 or 8 CTAs of 256 threads on a grid of
+    one cluster per solve, slab bounds that cover every column of the
+    working matrix exactly once, a slab that fits 232,448 bytes of shared
+    memory with the layout of ``csrc/solve_aug_slab.cuh``, and for the
+    blocked facts no panel of 32 head columns split between two slabs."""
+    family, refine = SA.FACT_CODES[fact]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for B, T in ((8, 30), (256, 10), (1, 64)):
+        plan = C.cr_plan(B, T, b, fact, dtype)
+        shapes = C._level_shapes(T)
+        assert len(plan.levels) == len(shapes)
+        ld_red, ld_base = 3 * b + 1 + (b if refine else 0), b + 1 + (b if refine else 0)
+        for lp, ld, nsys in zip(plan.launches, [ld_red] * len(shapes) + [ld_base],
+                                [H * B for H in shapes] + [B]):
+            assert lp.cluster in (1, 2, 4, 8) and lp.threads == 256 and lp.grid == nsys
+            assert (lp.cluster * lp.grid) % lp.cluster == 0
+            assert len(lp.bounds) == lp.cluster + 1
+            cover = [c for lo, hi in zip(lp.bounds, lp.bounds[1:]) for c in range(lo, hi)]
+            assert cover == list(range(ld))
+            wsmax = max(hi - lo for lo, hi in zip(lp.bounds, lp.bounds[1:]))
+            assert lp.smem_per_cta == C.slab_smem_bytes(b, wsmax, family, refine, itemsize)
+            assert lp.smem_per_cta <= 232448
+            if family >= 3:
+                owner = lambda c: sum(lo <= c for lo in lp.bounds[1:-1])
+                for k0 in range(0, b, SA.GJB_PANEL):
+                    assert owner(k0) == owner(min(k0 + SA.GJB_PANEL, b) - 1)
 
 
 @pytest.mark.parametrize("fact", FACTS)

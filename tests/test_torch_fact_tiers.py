@@ -217,8 +217,9 @@ def test_shared_memory_plans_per_fact():
     """One direction (K1) or two (K7a) of the sweep's working set per block:
     every factorization fits at the packed sweeps' b ≤ 42 in both dtypes;
     gjpr at b = 64 in float64 does not fit even one direction, and the
-    wrappers refuse instead of falling back. K3's blocked facts fit at
-    b = 100 in float32, not in float64."""
+    wrappers refuse instead of falling back. K3's facts fit at b = 100 in
+    both dtypes (column slabs over a cluster of CTAs), not at b = 300 in
+    float64."""
     for fact in K1.SWEEP_FACTS:
         for dtype in (torch.float32, torch.float64):
             K1.check_fits(42, fact, dtype)
@@ -228,8 +229,9 @@ def test_shared_memory_plans_per_fact():
         K1.check_fits(64, "gjpr", torch.float64)
     for fact in FACTS:
         C.check_fits(100, fact, torch.float32)
+        C.check_fits(100, fact, torch.float64)
         with pytest.raises(ValueError, match="shared memory"):
-            C.check_fits(100, fact, torch.float64)
+            C.check_fits(300, fact, torch.float64)
 
 
 MB, MN, MH = 2, 2, 20

@@ -60,6 +60,34 @@ def test_gauss_solve_routes_one_system_to_k8a(monkeypatch):
     assert calls == ["K8a", "K4b"]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [100, 200])
+def test_cluster_plan_covers_every_column_and_fits(n, dtype):
+    """K8a's launch plan at the one-instance routes' orders (the QP's n=100,
+    the lane change's n=200): a cluster of 1, 2, 4 or 8 CTAs of 256 threads
+    per system, slabs of whole panels that cover every column exactly once,
+    the last one the widest at most, and shared memory per CTA within
+    232,448 bytes as ``csrc/qr_sep.cu`` lays it out."""
+    plan = L.qr_sep_plan(n, dtype)
+    assert plan.cluster in (1, 2, 4, 8) and plan.threads == 256
+    assert plan.cluster == (8 if n == 200 else 4)
+    assert len(plan.bounds) == plan.cluster + 1
+    cover = [c for lo, hi in zip(plan.bounds, plan.bounds[1:]) for c in range(lo, hi)]
+    assert cover == list(range(n))
+    assert all(lo % L.QR_SEP_PANEL == 0 for lo in plan.bounds[:-1])
+    wsmax = max(hi - lo for lo, hi in zip(plan.bounds, plan.bounds[1:]))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert plan.smem_per_cta == L._qr_sep_smem_bytes(n, wsmax, itemsize) <= 232448
+
+
+def test_shared_memory_plan_accepts_n200_and_refuses_beyond_a_cluster():
+    """n=200 in float64 (the one-instance lane change) fits in a cluster of
+    8; n=400 in float64 does not, and the plan refuses it."""
+    assert L.qr_sep_plan(200, torch.float64).smem_per_cta <= 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        L.qr_sep_plan(400, torch.float64)
+
+
 @functools.lru_cache(maxsize=None)
 def _qp():
     N, M = 8, 6

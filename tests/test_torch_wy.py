@@ -63,6 +63,9 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
     with pytest.raises(ValueError, match="b must be"):
         L.wy_solve(A, b[:, :3])
     # A card block holds at most 232,448 bytes of shared memory: n = 104 in
-    # float64 fits, n = 160 does not.
+    # float64 fits, n = 160 does not. K8a splits A over a cluster of up to 8
+    # CTAs: n = 200 fits in both dtypes, n = 400 in float64 does not.
     assert L._wy_smem_bytes(104, 8, 8) < 232448 < L._wy_smem_bytes(160, 8, 8)
-    assert L._qr_sep_smem_bytes(200, 4) < 232448 < L._qr_sep_smem_bytes(200, 8)
+    assert L.qr_sep_plan(200, torch.float64).smem_per_cta < 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        L.qr_sep_plan(400, torch.float64)
