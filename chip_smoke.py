@@ -40,8 +40,10 @@ certifies each result with the true KKT residual, checks a few lanes
 against a float64 CPU reference, checks the training gradient against
 finite differences (float64) and against the CPU's float64 gradient, times
 each kernel (and each fact) beside its bound, its plain version and a
-library call, times K3 and K8a (thread-block-cluster kernels) with their
-launch plans and against other cluster sizes in turns, compares K3's
+library call, times K1 (and its facts), K4a and K5 on their plan's route
+(registers: one warp per system, or a 256-thread tile) against the old
+block route in turns, times K3 and K8a (thread-block-cluster kernels) with
+their launch plans and against other cluster sizes in turns, compares K3's
 refined facts gjpr, gjbpr and gjbprl in turns on the N=10 bands, profiles
 one batch of each path (the first Newton steps of the N=10 batch) and one
 train step, and
@@ -60,6 +62,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -268,9 +271,11 @@ def banded_wrappers():
 
 def reset_counts():
     """Set every banded wrapper's launch count to 0 (each fact's, for the
-    wrappers that count per fact)."""
+    wrappers that count per fact, and each route's, for K1)."""
     for w in banded_wrappers().values():
         w.launches = dict.fromkeys(w.launches, 0) if isinstance(w.launches, dict) else 0
+        if hasattr(w, "route_launches"):
+            w.route_launches = dict.fromkeys(w.route_launches, 0)
 
 
 def read_counts():
@@ -281,6 +286,19 @@ def read_counts():
 
 def total(count):
     return sum(count.values()) if isinstance(count, dict) else count
+
+
+def ab_ms(new, old, reps):
+    """(new, old) mean milliseconds per call, timed in turns new, old, old,
+    new (``cuda_ms`` each), so that drift of the card's clock falls on both."""
+    t = [cuda_ms(fn, reps) for fn in (new, old, old, new)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def plan_fields(plan):
+    """A K1 or K4a/K5 plan as the kernels line prints it."""
+    return {k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in dataclasses.asdict(plan).items()}
 
 
 # -- K1 --------------------------------------------------------------------
@@ -357,13 +375,19 @@ def lane_change_bands(dtype, device):
     return first_newton_bands(bench.parametric_game.mcp, th.to(dtype))
 
 
-def k1_check(name, args, tol, relative=False):
+def k1_check(name, args, tol, relative=False, route=None):
+    """K1 qr against its plain version; with ``route``, the launch must
+    have taken that route of ``thomas_plan``."""
     import torch
 
     from mcp_tpu_torch.kernels.thomas import thomas_solve, thomas_solve_plain
 
+    before = dict(thomas_solve.route_launches)
     xk = thomas_solve(*args)
     torch.cuda.synchronize()
+    if route is not None:
+        took = [r for r, n in thomas_solve.route_launches.items() if n != before[r]]
+        check(took == [route], f"K1 {name}: launched on route {took}, not {route!r}")
     xp = thomas_solve_plain(*args)
     scale = float(xp.abs().max()) if relative else 1.0
     err = float((xk - xp).abs().max()) / max(scale, 1e-30)
@@ -389,6 +413,16 @@ def phase_k1(device):
     k1_check("random (3,7,5) f32", random_bands((3, 7, 5), f32, device, 3), K1_TOL)
     k1_check("random (256,10,20) f64", random_bands((256, 10, 20), f64, device, 4), K1_F64_TOL)
     k1_check("random (2,1,64) f64", random_bands((2, 1, 64), f64, device, 5), K1_F64_TOL)
+    # The route boundaries: b <= 32 on the warp route (one warp per system,
+    # registers), b = 33 on the block route; T = 1 and 10; both dtypes.
+    from mcp_tpu_torch.kernels.thomas import thomas_plan
+
+    for dtype, tol in ((f32, K1_TOL), (f64, K1_F64_TOL)):
+        for b in (1, 20, 32, 33):
+            for T in (1, 10):
+                route = thomas_plan(b, "qr", dtype).route
+                k1_check(f"random (16,{T},{b}) {str(dtype)[6:]} [{route}]",
+                         random_bands((16, T, b), dtype, device, 70 + b + T), tol, route=route)
     real = lane_change_bands(f32, device)
     err = k1_check("lane-change first Newton step (256,10,20) f32", real,
                    K1_REAL_TOL, relative=True)
@@ -493,6 +527,7 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026, tier="tridi
     )
     from mcp_tpu_torch.bench import lane_change as lc
     from mcp_tpu_torch.bench.harness import true_kkt_errors
+    from mcp_tpu_torch.kernels.thomas import thomas_plan, thomas_solve
 
     t0 = time.perf_counter()
     bench = lc.generate_test_problem(horizon=10, device=device)
@@ -524,6 +559,7 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026, tier="tridi
     sync()
     wall_s = time.perf_counter() - t1
     launches = read_counts()
+    routes = dict(thomas_solve.route_launches)
     device_s = start.elapsed_time(end) / 1e3 if device == "cuda" else float("nan")
 
     tk = true_kkt_errors(mcp, res, stack)
@@ -540,6 +576,7 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026, tier="tridi
         window_s_events=device_s,
         window_s_host=wall_s,
         launches=launches,
+        thomas_routes=routes,
     )
     log(f"  {name} ({tier}): " + json.dumps(stats))
     check(tuple(res.x.shape) == (k_batches, batch, mcp.unconstrained_dimension),
@@ -553,6 +590,9 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026, tier="tridi
           f"{name}: a kernel never launched {launches}")
     check(not any(others.values()) and not total(launches["babe"]) and not total(launches["cr"]),
           f"{name}: another banded kernel launched {launches}")
+    route = thomas_plan(mcp.time_structure.block_size, fact, torch.float32).route
+    check(routes[route] == launches["thomas"][fact],
+          f"{name}: K1 launched off its plan's route {route!r}: {routes}")
     return mcp, options, stack, res, launches
 
 
@@ -634,17 +674,29 @@ def backward_error(A, b, x):
                        + b.abs().amax(dim=1))).max())
 
 
-def dense_check(name, fn, plain, A, b):
+def dense_check(name, fn, plain, A, b, plan=None):
     """Kernel against plain on (A, b), with GJ_TOL for the Gauss–Jordan
-    kernels; the QR kernels (K4b/K4c, K8a, K8b) are held to QR_TOL
-    (condition-scaled) and to QR_BWD_TOL (backward error, condition-free).
-    Returns the max absolute difference."""
+    kernels (K4a/K5 on ``plan``, default ``gj_plan``'s); the QR kernels
+    (K4b/K4c, K8a, K8b) are held to QR_TOL (condition-scaled) and to
+    QR_BWD_TOL (backward error, condition-free). Returns the max absolute
+    difference."""
     import torch
 
-    from mcp_tpu_torch.kernels.linear_solve import gauss_solve, pallas_gauss_solve, wy_solve
+    from mcp_tpu_torch.kernels.linear_solve import (
+        gauss_solve,
+        gj_plan,
+        pallas_gauss_solve,
+        wy_solve,
+    )
 
-    got = fn(A, b)
+    routes = dict(getattr(fn, "route_launches", {}))
+    got = fn(A, b) if plan is None else fn(A, b, plan=plan)
     torch.cuda.synchronize()
+    if routes:
+        # K4a/K5: the launch took the route of its plan.
+        want_route = (plan or gj_plan(A.shape[-1], isinstance(got, tuple), A.dtype)).route
+        took = [r for r, k in fn.route_launches.items() if k != routes[r]]
+        check(took == [want_route], f"{name}: launched on route {took}, not {want_route!r}")
     want = plain(A, b)
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     rel = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
@@ -700,6 +752,27 @@ def phase_dense_kernels(device):
             ("random (5,10)", random_systems(5, 10, dtype, device, 24)),
         ):
             dense_check(f"gauss_solve {what} {tag}", L.gauss_solve, L.qr_solve_plain, *systems)
+        # K4a/K5 over the tile route's range: n = 12 and 128 (its edge) and
+        # a batch of 5 at n = 10.
+        for what, systems in (
+            ("SPD (256,12)", spd_systems(B, 12, dtype, device, 27)),
+            ("SPD (256,128)", spd_systems(B, 128, dtype, device, 28)),
+            ("random (5,10)", random_systems(5, 10, dtype, device, 29)),
+        ):
+            for name, fn, plain in (gj, gji):
+                dense_check(f"{name} {what} {tag}", fn, plain, *systems)
+        # The block route: n = 129, the first order over the tile route
+        # (gji in float64 is refused there: [A | b | I] is over a block's
+        # shared memory), and (256,100) on the block route forced by the
+        # plan, the other half of phase 10's A/B.
+        at129 = spd_systems(B, 129, dtype, device, 30)
+        for name, fn, plain in ((gj, gji) if dtype == f32 else (gj,)):
+            inverse = fn is L.gji_solve
+            check(L.gj_plan(129, inverse, dtype).route == "block",
+                  f"{name}: n=129 in {tag} is not on the block route")
+            dense_check(f"{name} SPD (256,129) {tag} [block]", fn, plain, *at129)
+            dense_check(f"{name} SPD (256,100) {tag} [block, forced]", fn, plain, *spd,
+                        plan=L.gj_plan(QP_N, inverse, dtype, route="block"))
 
     problem = qp.generate_test_problem(num_primals=QP_N, num_inequalities=QP_N, device=device)
     mcp = problem.mcp
@@ -734,8 +807,14 @@ def phase_dense_kernels(device):
     A, b = spd_systems(4, QP_N, f32, device, 25)
     A[2, 0, :] = 0.0
     A[2, :, 0] = 0.0
-    for name, fn, plain in (gj, gji, qr):
-        got, want = fn(A, b), plain(A, b)
+    # K4a/K5 on their plan's route, then on the block route forced.
+    cases = [(name, fn, plain, None) for name, fn, plain in (gj, gji, qr)]
+    cases += [(f"{name} [block, forced]", fn, plain,
+               L.gj_plan(QP_N, fn is L.gji_solve, f32, route="block"))
+              for name, fn, plain in (gj, gji)]
+    for name, fn, plain, plan in cases:
+        got = fn(A, b) if plan is None else fn(A, b, plan=plan)
+        want = plain(A, b)
         torch.cuda.synchronize()
         x, xp = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
         bad = (~torch.isfinite(x).all(dim=1)).tolist()
@@ -796,6 +875,7 @@ def phase_qp_path(device, batch=B, k_batches=K_BATCHES, seed=2027):
     torch.cuda.synchronize()
 
     L.gj_solve.launches = 0
+    L.gj_solve.route_launches = dict.fromkeys(L.gj_solve.route_launches, 0)
     t1 = time.perf_counter()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -804,6 +884,7 @@ def phase_qp_path(device, batch=B, k_batches=K_BATCHES, seed=2027):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t1
     launches = L.gj_solve.launches
+    routes = dict(L.gj_solve.route_launches)
     device_s = start.elapsed_time(end) / 1e3
 
     tk = certify64(mcp, res, stack)
@@ -821,6 +902,7 @@ def phase_qp_path(device, batch=B, k_batches=K_BATCHES, seed=2027):
         window_s_events=device_s,
         window_s_host=wall_s,
         gj_launches=launches,
+        gj_routes=routes,
         tightening_rate=options.tightening_rate,
     )
     log("  QP path: " + json.dumps(stats))
@@ -831,6 +913,9 @@ def phase_qp_path(device, batch=B, k_batches=K_BATCHES, seed=2027):
     check(not bool((solved & (tk > options.tol)).any()),
           "QP path: a SOLVED lane has float64 true KKT above tol")
     check(launches > 0, "QP path: K4a (gj_solve) never launched")
+    route = L.gj_plan(QP_N, False, torch.float32).route
+    check(routes[route] == launches,
+          f"QP path: K4a launched off its plan's route {route!r}: {routes}")
     return mcp, options, stack, res, launches
 
 
@@ -854,9 +939,16 @@ def phase_qp_tiers(mcp, options, device, seed=2028):
                                          device=device)
         opts = dataclasses.replace(options, linear_solver=tier, algorithm=algorithm)
         wrapper.launches = 0
+        if hasattr(wrapper, "route_launches"):
+            wrapper.route_launches = dict.fromkeys(wrapper.route_launches, 0)
         res = solve_batch(mcp, th, options=opts)
         torch.cuda.synchronize()
         launches[wrapper.__name__] = wrapper.launches
+        if wrapper is L.gji_solve:
+            route = L.gj_plan(QP_N, True, torch.float32).route
+            check(wrapper.route_launches[route] == wrapper.launches,
+                  f"tier {tier}: K5 launched off its plan's route {route!r}: "
+                  f"{wrapper.route_launches}")
         tk = certify64(mcp, res, th)
         solved = res.status == SOLVED
         log(f"  tier {tier} ({algorithm}): success {float(solved.double().mean())}, "
@@ -1044,14 +1136,36 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
     import torch
 
     from mcp_tpu_torch.kernels.linesearch import linesearch_update, linesearch_update_plain
-    from mcp_tpu_torch.kernels.thomas import thomas_solve, thomas_solve_plain
+    from mcp_tpu_torch.kernels.thomas import thomas_plan, thomas_solve, thomas_solve_plain
     from mcp_tpu_torch.solver import SolverOptions, linesearch_candidates
 
     diag, lower, upper, rhs = real_bands
     Bn, T, b, _ = diag.shape
     shared = lower.stride(0) == 0
-    k1_ms = cuda_ms(lambda: thomas_solve(diag, lower, upper, rhs), 50)
+    # The plan's route against the block route forced by the plan, in turns.
+    k1_plan = thomas_plan(b, "qr", diag.dtype)
+    k1_old_plan = thomas_plan(b, "qr", diag.dtype, route="block")
+    k1_ms, k1_old = ab_ms(lambda: thomas_solve(diag, lower, upper, rhs, plan=k1_plan),
+                          lambda: thomas_solve(diag, lower, upper, rhs, plan=k1_old_plan), 50)
     k1_plain = cuda_ms(lambda: thomas_solve_plain(diag, lower, upper, rhs), 3)
+    # float64: the warp route against the block route, both forced, in
+    # turns, for every fact the warp route takes in float64: qr, gj and gjp
+    # on these bands, gjpr (over the register budget at b = 20) on random
+    # bands at b = 16.
+    f64 = torch.float64
+    bands64 = tuple(a[:1].double().expand(a.shape) if a.stride(0) == 0 else a.double()
+                    for a in real_bands)
+    k1_f64 = {}
+    for fact, args in (("qr", bands64), ("gj", bands64), ("gjp", bands64),
+                       ("gjpr", random_bands((Bn, T, 16), f64, device, 95))):
+        b64 = args[0].shape[-1]
+        warp, block = (thomas_plan(b64, fact, f64, route=r) for r in ("warp", "block"))
+        warp_ms, block_ms = ab_ms(lambda: thomas_solve(*args, fact=fact, plan=warp),
+                                  lambda: thomas_solve(*args, fact=fact, plan=block), 20)
+        k1_f64[f"{fact} b={b64}"] = {"plan_route": thomas_plan(b64, fact, f64).route,
+                                     "warp_ms": warp_ms, "block_ms": block_ms}
+        log(f"  K1 {fact} ({Bn},{T},{b64}) float64: warp route {warp_ms:.4f} ms, block route "
+            f"{block_ms:.4f} ms; the plan takes {k1_f64[f'{fact} b={b64}']['plan_route']}")
     # Library yardstick: the same system assembled dense (B, Tb, Tb) outside
     # the timing, solved by torch.linalg.solve (the port never calls it).
     A = torch.zeros((Bn, T * b, T * b), dtype=diag.dtype, device=device)
@@ -1082,7 +1196,8 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
          "replaces": "mcp_tpu/kernels/thomas_pallas.py:852",
          "launches": launches["thomas"]["qr"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib},
+         "bound_by": k1_by, "library_ms": k1_lib,
+         "plan": plan_fields(k1_plan), "old_route_ms": k1_old, "float64_routes": k1_f64},
         {"name": "linesearch_update", "route": "cuda",
          "source": "mcp_tpu_torch/kernels/csrc/linesearch.cu",
          "replaces": "mcp_tpu/kernels/linesearch_pallas.py:70",
@@ -1108,19 +1223,32 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
     ):
         nbytes, flops = dense_counts(kind, Bn, n)
         b_ms, b_by = bound(nbytes, flops)
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"mcp_tpu_torch/kernels/csrc/{line}",
             "replaces": {"gj": "mcp_tpu/kernels/linear_solve.py:577",
                          "gji": "mcp_tpu/kernels/linear_solve.py:674",
                          "qr": "mcp_tpu/kernels/linear_solve.py:494"}[kind],
             "launches": dense_launches[name], "max_abs_err": dense_errs[name],
-            "ms": cuda_ms(lambda: fn(A, b), 50), "plain_ms": cuda_ms(lambda: plain(A, b), 3),
+            "ms": None, "plain_ms": cuda_ms(lambda: plain(A, b), 3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 20),
-        })
+        }
+        if kind == "qr":
+            entry["ms"] = cuda_ms(lambda: fn(A, b), 50)
+        else:
+            # K4a/K5: the plan's route against the block route, in turns.
+            plan = L.gj_plan(n, kind == "gji", A.dtype)
+            old = L.gj_plan(n, kind == "gji", A.dtype, route="block")
+            entry["ms"], entry["old_route_ms"] = ab_ms(
+                lambda fn=fn, plan=plan: fn(A, b, plan=plan),
+                lambda fn=fn, old=old: fn(A, b, plan=old), 50)
+            entry["plan"] = plan_fields(plan)
+        kernels.append(entry)
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "
-            f"{k['bound_ms']:.5f} ms by {k['bound_by']}, library {k['library_ms']})")
+            f"{k['bound_ms']:.5f} ms by {k['bound_by']}, library {k['library_ms']})"
+            + (f"; route {k['plan']['route']}, block route {k['old_route_ms']:.4f} ms"
+               if "plan" in k else ""))
     return kernels
 
 
@@ -1866,6 +1994,11 @@ def phase_fact_kernels(n4, n10, device):
             for sh, seed in (((B, 10, 20), 61), ((3, 7, 5), 62)):
                 check_fact("thomas", fact, f"random ({'x'.join(map(str, sh))})",
                            random_bands(sh, dtype, device, seed))
+            # The route boundaries of K1's plan: b <= 32 on the warp route
+            # where the register budget holds, b = 33 on the block route.
+            for b in (1, 20, 32, 33):
+                for T in (1, 10):
+                    k1_fact_route_check(fact, random_bands((8, T, b), dtype, device, 90 + b + T))
             e = check_fact("babe", fact, f"N=4 first Newton step ({shape(n4b)})", n4b)
             if dtype == f32:
                 errs["babe", fact] = e
@@ -1890,6 +2023,19 @@ def phase_fact_kernels(n4, n10, device):
     fact_check("cr", "gjbpr", f"N=10 first Newton step ({shape(n10b)})",
                tuple(a.double() for a in n10b))
     return bands, errs
+
+
+def k1_fact_route_check(fact, args):
+    """K1′ with ``fact`` against its plain version (``FACT_TOL``), on the
+    route its plan gives these bands."""
+    from mcp_tpu_torch.kernels.thomas import thomas_plan, thomas_solve
+
+    B_, T, b, _ = args[0].shape
+    route = thomas_plan(b, fact, args[0].dtype).route
+    before = dict(thomas_solve.route_launches)
+    fact_check("thomas", fact, f"random ({B_}x{T}x{b}) [{route}]", args, tol=FACT_TOL)
+    took = [r for r, n in thomas_solve.route_launches.items() if n != before[r]]
+    check(took == [route], f"K1' {fact} ({B_},{T},{b}): launched on route {took}, not {route!r}")
 
 
 def phase_path_b(device, seed=2030):
@@ -1983,6 +2129,8 @@ def phase_fact_timing(bands, errs, launches, device):
     rows += [("cr", f, "lane", (f,)) for f in ("gj", "gjb", "gjbr", "gjbr2", "gjbpr", "gjbpr2",
                                                  "gjbprl")]
     rows += [("cr", "gjbpr", "N=4", ("gjbpr", "N=4"))]
+    from mcp_tpu_torch.kernels.thomas import thomas_plan, thomas_solve
+
     kernels = []
     for kernel, fact, key, ekey in rows:
         args = bands[key]
@@ -1997,20 +2145,32 @@ def phase_fact_timing(bands, errs, launches, device):
         b_ms, b_by = bound(nbytes, flops)
         name, src, replaces = FACT_SOURCE[kernel]
         lau = launches[(kernel, fact, key) if (kernel, fact, key) in launches else (kernel, fact)]
+        extra = {}
+        if kernel == "thomas":
+            # K1′: the plan's route against the block route, in turns.
+            plan = thomas_plan(b, fact, args[0].dtype)
+            old = thomas_plan(b, fact, args[0].dtype, route="block")
+            ms, old_ms = ab_ms(lambda: thomas_solve(*args, fact=fact, plan=plan),
+                               lambda: thomas_solve(*args, fact=fact, plan=old), 20)
+            extra = {"plan": plan_fields(plan), "old_route_ms": old_ms}
+        else:
+            ms = cuda_ms(lambda: fact_solver(kernel, fact)(*args), 20)
         entry = {
             "name": f"{name}[{fact}]" + (" N=4" if kernel == "cr" and key == "N=4" else ""),
             "route": "cuda", "source": f"mcp_tpu_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": lau, "max_abs_err": errs[(kernel, *ekey)],
-            "ms": cuda_ms(lambda: fact_solver(kernel, fact)(*args), 20),
+            "ms": ms,
             "plain_ms": cuda_ms(lambda: fact_solver(kernel, fact, plain=True)(*args), 2),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[key],
-            **(cr_plan_fields(args, fact) if kernel == "cr" else {}),
+            **(cr_plan_fields(args, fact) if kernel == "cr" else {}), **extra,
         }
         kernels.append(entry)
         log(f"  {entry['name']} ({Bn},{T},{b}): {entry['ms']:.4f} ms (plain "
             f"{entry['plain_ms']:.3f} ms, bound {b_ms:.5f} ms by {b_by} [{flops / 1e9:.3f} "
             f"GFLOP, {nbytes / 1e6:.2f} MB], dense solve {entry['library_ms']:.3f} ms); "
-            f"launches {lau} in its path's window")
+            f"launches {lau} in its path's window"
+            + (f"; route {extra['plan']['route']}, block route {extra['old_route_ms']:.4f} ms"
+               if extra else ""))
     args = bands["N=10"]
     Bn, T, b, _ = args[0].shape
     ab = {f: [] for f in ("gjpr", "gjbpr", "gjbprl")}
@@ -2595,9 +2755,14 @@ def main() -> int:
     logs = _build.build()
     log(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  [{name}] {line.strip()}")
+            if "Compiling entry function" in line:
+                # The kernel and its template arguments, from the mangled name.
+                m = re.search(r"\d([a-z_]+_kernel)I(\w+?)EEv", line)
+                entry = f"{m.group(1)}<{m.group(2)}> " if m else ""
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"  [{name}] {entry}{line.strip()}")
 
     device = "cuda"
     phase("2: K1 (thomas) kernel vs plain")

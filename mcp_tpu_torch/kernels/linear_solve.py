@@ -51,7 +51,12 @@ A CUDA tensor launches the hand-written kernel (``csrc/gauss_jordan.cu``,
 CPU tensor runs the plain PyTorch version of the same algebra
 (``gj_solve_plain``, ``gji_solve_plain``, ``qr_solve_plain``,
 ``qr_solve_sep_plain``, ``wy_solve_plain``). Each wrapper counts its kernel
-launches in ``.launches``.
+launches in ``.launches``. K4a and K5 have two routes, picked by
+``gj_plan(n, inverse, dtype)``, a plain function of the shapes: ``"tile"``
+(n ≤ 128: the n + 1 slots of [A | b] in registers, cyclically over an
+8 × 32 thread grid; K5 turns slot k into identity column k at step k) or
+``"block"`` (the augmented matrix in shared memory); ``gj_solve`` and
+``gji_solve`` count launches per route in ``.route_launches``.
 """
 
 from __future__ import annotations
@@ -293,40 +298,100 @@ def _launch(lib: str, symbol: str, wrapper, A: Tensor, ptrs: list[int]):
     wrapper.launches += 1
 
 
-def gj_solve(A: Tensor, b: Tensor) -> Tensor:
+#: The tile route of K4a/K5 (``csrc/gauss_jordan.cu``): thread (ty, tx) of
+#: a TY × TX = 8 × 32 grid holds rows ty + 8 r, r < R, and slots tx + 32 c,
+#: c < C, of the n + 1 slots of [A | b], with R an even number of rows up to
+#: 16 (n ≤ 128) and C = ⌈(8 R + 1)/32⌉; its register budget is the R × C
+#: tile plus row k's C values and the R multipliers, in 32-bit registers.
+#: These are the kernel's own (``kTY``, ``kTX``, ``dispatch``'s cases,
+#: ``kTileRegs``).
+TILE_GRID = (8, 32)
+TILE_ROWS = (2, 4, 6, 8, 10, 12, 14, 16)
+TILE_REGS = 208
+GJ_ROUTES = ("tile", "block")
+_GJ_ROUTE_CODES = {"block": 0, "tile": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class GJPlan:
+    """K4a's or K5's launch for one (n, inverse, dtype): ``route`` "tile" or
+    "block" (256 threads and one system per block either way), and on the
+    tile route the rows per thread ``rows`` (R; 0 on the block route)."""
+
+    route: str
+    rows: int
+
+
+def gj_plan(n: int, inverse: bool, dtype, route: str | None = None) -> GJPlan:
+    """K4a's (``inverse`` False) or K5's plan at order n in ``dtype``: the
+    tile route for n ≤ 128 where the tile is within ``TILE_REGS``, else the
+    block route. ``route`` forces one (the A/B comparison of
+    ``chip_smoke.py``); raises ``ValueError`` where the route does not take
+    the shape, or where the block route's matrix does not fit a block's
+    shared memory."""
+    if route not in (None, *GJ_ROUTES):
+        raise ValueError(f"gj_plan: route must be one of {GJ_ROUTES}, got {route!r}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    ty, tx = TILE_GRID
+    rows = next((r for r in TILE_ROWS if n <= ty * r), None)
+    if route != "block" and rows is not None:
+        cols = -(-(ty * rows + 1) // tx)
+        if ((rows + 1) * cols + rows) * (itemsize // 4) <= TILE_REGS:
+            return GJPlan("tile", rows)
+    if route == "tile":
+        raise ValueError(f"gj_plan: the tile route does not take n={n} in {dtype}")
+    _check_fits("gji_solve" if inverse else "gj_solve", n, 2 * n + 1 if inverse else n + 1,
+                dtype)
+    return GJPlan("block", 0)
+
+
+def _gj_launch(wrapper, A: Tensor, b: Tensor, x: Tensor, inv, plan: GJPlan):
+    B, n, _ = A.shape
+    with torch.cuda.device(A.device):
+        err = _entry("gauss_jordan", "mcp_gj_solve")(
+            0 if A.dtype == torch.float32 else 1, A.data_ptr(), b.data_ptr(), x.data_ptr(),
+            0 if inv is None else inv.data_ptr(), B, n, _GJ_ROUTE_CODES[plan.route],
+            plan.rows, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mcp_gj_solve launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    wrapper.route_launches[plan.route] += 1
+
+
+def gj_solve(A: Tensor, b: Tensor, *, plan: GJPlan | None = None) -> Tensor:
     """Gauss–Jordan solve without pivoting, A (B, n, n), b (B, n) → x (B, n)
-    (K4a; see the module docstring)."""
+    (K4a; see the module docstring); ``plan`` (default ``gj_plan``'s) is for
+    A/B comparisons of the routes."""
     _check("gj_solve", A, b)
     if A.device.type == "cpu":
         return gj_solve_plain(A, b)
     n = A.shape[-1]
-    _check_fits("gj_solve", n, n + 1, A.dtype)
     x = torch.empty_like(b)
     if A.shape[0] and n:
-        _launch("gauss_jordan", "mcp_gj_solve", gj_solve, A,
-                [A.data_ptr(), b.data_ptr(), x.data_ptr(), 0])
+        _gj_launch(gj_solve, A, b, x, None, plan or gj_plan(n, False, A.dtype))
     return x
 
 
 gj_solve.launches = 0
+gj_solve.route_launches = dict.fromkeys(GJ_ROUTES, 0)
 
 
-def gji_solve(A: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
+def gji_solve(A: Tensor, b: Tensor, *, plan: GJPlan | None = None) -> tuple[Tensor, Tensor]:
     """Gauss–Jordan solve and explicit inverse without pivoting, A (B, n, n),
-    b (B, n) → (x (B, n), A⁻¹ (B, n, n)) (K5; see the module docstring)."""
+    b (B, n) → (x (B, n), A⁻¹ (B, n, n)) (K5; see the module docstring);
+    ``plan`` (default ``gj_plan``'s) is for A/B comparisons of the routes."""
     _check("gji_solve", A, b)
     if A.device.type == "cpu":
         return gji_solve_plain(A, b)
     n = A.shape[-1]
-    _check_fits("gji_solve", n, 2 * n + 1, A.dtype)
     x, inv = torch.empty_like(b), torch.empty_like(A)
     if A.shape[0] and n:
-        _launch("gauss_jordan", "mcp_gj_solve", gji_solve, A,
-                [A.data_ptr(), b.data_ptr(), x.data_ptr(), inv.data_ptr()])
+        _gj_launch(gji_solve, A, b, x, inv, plan or gj_plan(n, True, A.dtype))
     return x, inv
 
 
 gji_solve.launches = 0
+gji_solve.route_launches = dict.fromkeys(GJ_ROUTES, 0)
 
 
 def gauss_solve(A: Tensor, b: Tensor) -> Tensor:
@@ -417,7 +482,7 @@ def _entry(lib: str, symbol: str):
                            vp]
         else:
             nptr = 4 if lib == "gauss_jordan" else 3
-            fn.argtypes = ([ci] + [vp] * nptr + [ci, ci]
-                           + ([ci] if lib == "wy_qr" else []) + [vp])
+            extra = {"wy_qr": [ci], "gauss_jordan": [ci, ci]}.get(lib, [])
+            fn.argtypes = [ci] + [vp] * nptr + [ci, ci] + extra + [vp]
         fn.restype = ctypes.c_int
     return fn

@@ -16,13 +16,19 @@ QR pivot gives inf/NaN in x; a Gauss–Jordan pivot is clamped to 1e-30.
 A CUDA tensor launches the hand-written kernel ``csrc/thomas.cu`` (which
 replaces ``mcp_tpu/kernels/thomas_pallas.py::_thomas_kernel_lanes``, QR only,
 and ``_thomas_kernel_packed`` with its facts) or raises; a CPU tensor runs
-``thomas_solve_plain``, the same algebra in batched PyTorch ops.
-``thomas_solve.launches`` counts kernel launches per fact (a dict).
+``thomas_solve_plain``, the same algebra in batched PyTorch ops. The kernel
+has two routes, and ``thomas_plan(b, fact, dtype)``, a plain function of the
+shapes, picks one: ``"warp"`` (one warp per system, the step's working
+matrix in registers, column-owned by the lanes; b ≤ 32 within the register
+budget) or ``"block"`` (one thread block per system, the working matrix in
+shared memory; every other shape). ``thomas_solve.launches`` counts kernel
+launches per fact and ``thomas_solve.route_launches`` per route (dicts).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -128,9 +134,68 @@ def check_fits(b: int, fact: str, dtype, directions: int = 1, name: str = "thoma
         )
 
 
+#: The warp route's row templates (``csrc/thomas.cu``: b ≤ BM rows per
+#: column, BM the smallest that holds b) and its register budget: the
+#: lane's column groups plus one vector of BM values (the Householder vector
+#: or the multipliers), in 32-bit registers. Both are the kernel's own
+#: (``dispatch_warp``'s cases and ``kWarpRegs``); the C entry derives the
+#: shared memory of either route itself.
+WARP_ROWS = (8, 16, 24, 32)
+WARP_REGS = 168
+ROUTES = ("warp", "block")
+_ROUTE_CODES = {"block": 0, "warp": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class ThomasPlan:
+    """K1's launch for one (b, fact, dtype): ``route`` "warp" (one warp per
+    system) or "block" (128 threads per system), and on the warp route the
+    row template ``rows`` (BM; 0 on the block route)."""
+
+    route: str
+    rows: int
+
+
+def _warp_rows(b: int, fact: str, itemsize: int):
+    """The warp route's row template at (b, fact, itemsize), or None where
+    b > 32 or the tile is over the register budget. Lane l holds columns
+    l + 32 g of the [A | N] working matrix (2 BM + 1 columns, plus BM
+    identity columns with refinement)."""
+    rows = next((r for r in WARP_ROWS if b <= r), None)
+    if rows is None:
+        return None
+    groups = -(-(2 * rows + 1 + (rows if FACT_CODES[fact][1] else 0)) // 32)
+    return rows if (groups + 1) * rows * (itemsize // 4) <= WARP_REGS else None
+
+
+def thomas_plan(b: int, fact: str, dtype, route: str | None = None) -> ThomasPlan:
+    """K1's plan for blocks of b with ``fact`` in ``dtype``: the warp route
+    where it takes the shape (b ≤ 32 and the tile within ``WARP_REGS``),
+    else the block route. ``route`` forces one (the A/B comparison of
+    ``chip_smoke.py``); raises ``ValueError`` where the route does not take
+    the shape, and for what no route takes (b > 64; the block route's shared
+    memory, e.g. gjpr at b=64 in float64)."""
+    if fact not in SWEEP_FACTS:
+        raise ValueError(f"thomas_solve: fact must be one of {SWEEP_FACTS}, got {fact!r}")
+    if b > MAX_BLOCK:
+        raise ValueError(f"thomas_solve takes blocks up to b={MAX_BLOCK}, got b={b}")
+    if route not in (None, *ROUTES):
+        raise ValueError(f"thomas_plan: route must be one of {ROUTES}, got {route!r}")
+    if route != "block":
+        rows = _warp_rows(b, fact, torch.empty((), dtype=dtype).element_size())
+        if rows is not None:
+            return ThomasPlan("warp", rows)
+        if route == "warp":
+            raise ValueError(f"thomas_plan: the warp route does not take fact={fact!r} at "
+                             f"b={b} in {dtype}")
+    check_fits(b, fact, dtype)
+    return ThomasPlan("block", 0)
+
+
 def thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
-                 fact: str = "qr") -> Tensor:
-    """Batched block-tridiagonal solve (see the module docstring)."""
+                 fact: str = "qr", plan: ThomasPlan | None = None) -> Tensor:
+    """Batched block-tridiagonal solve (see the module docstring); ``plan``
+    (default ``thomas_plan``'s) is for A/B comparisons of the routes."""
     _check(diag, lower, upper, rhs)
     lower_bs, upper_bs = _batch_stride(lower, "lower"), _batch_stride(upper, "upper")
     if fact not in SWEEP_FACTS:
@@ -140,7 +205,8 @@ def thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
     if diag.device.type != "cuda":
         raise ValueError(f"thomas_solve runs on cuda or cpu, not {diag.device}")
     B, T, b, _ = diag.shape
-    check_fits(b, fact, diag.dtype)
+    if plan is None:
+        plan = thomas_plan(b, fact, diag.dtype)
     x = torch.empty_like(rhs)
     if B == 0:
         return x
@@ -150,15 +216,18 @@ def thomas_solve(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
             0 if diag.dtype == torch.float32 else 1, *FACT_CODES[fact],
             diag.data_ptr(), lower.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
             cd.data_ptr(), x.data_ptr(), B, T, b, lower_bs, upper_bs,
+            _ROUTE_CODES[plan.route], plan.rows,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"thomas kernel launch failed: CUDA error {err}")
     thomas_solve.launches[fact] += 1
+    thomas_solve.route_launches[plan.route] += 1
     return x
 
 
 thomas_solve.launches = dict.fromkeys(SWEEP_FACTS, 0)
+thomas_solve.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _entry():
@@ -168,6 +237,6 @@ def _entry():
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         ci, ll = ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ll, ll, vp]
+        fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ll, ll, ci, ci, vp]
         fn.restype = ctypes.c_int
     return fn
