@@ -42,8 +42,12 @@ finite differences (float64) and against the CPU's float64 gradient, times
 each kernel (and each fact) beside its bound, its plain version and a
 library call, times K1 (and its facts), K4a and K5 on their plan's route
 (registers: one warp per system, or a 256-thread tile) against the old
-block route in turns, times K3 and K8a (thread-block-cluster kernels) with
-their launch plans and against other cluster sizes in turns, compares K3's
+block route in turns, and K7a (each fact, float32 and float64) on its
+plan's route (one 128-thread group per sweep direction, a column of the
+working matrix per thread in registers) against its block route in turns,
+reads the device time per launch of K2 and K7a from the profiles, times
+K3 and K8a (thread-block-cluster kernels) with their launch plans and
+against other cluster sizes in turns, compares K3's
 refined facts gjpr, gjbpr and gjbprl in turns on the N=10 bands, profiles
 one batch of each path (the first Newton steps of the N=10 batch) and one
 train step, and
@@ -218,6 +222,10 @@ TRAIN_B, TRAIN_STEPS, TRAIN_MIN_SUCCESS, TRAIN_STEP_MIN_SUCCESS = 8, 3, 0.9, 0.5
 # F32_GRAD_TOL. Each tolerance is ten to twenty times the floor measured on
 # the card (PERF.md §6).
 GRAD_B, GRAD_SEED, GRAD_SOLVE_TOL, FD_STEP = 2, 1, 1e-9, 2e-4
+# The kernels whose device time per launch the profiles read (their names as
+# the profiler records them): K2, and K7a's group route.
+K2_KERNEL = r"\bls_kernel<"
+K7A_GROUP_KERNEL = r"\bbabe_group_kernel<"
 FD_TOL, F32_GRAD_TOL = 3e-8, 1e-4
 
 
@@ -284,6 +292,13 @@ def read_counts():
             for k, w in banded_wrappers().items()}
 
 
+def read_routes():
+    """A copy of the launch count per route of the wrappers that have two
+    (K1: "warp"/"block"; K7a: "group"/"block")."""
+    return {k: dict(w.route_launches) for k, w in banded_wrappers().items()
+            if hasattr(w, "route_launches")}
+
+
 def total(count):
     return sum(count.values()) if isinstance(count, dict) else count
 
@@ -296,7 +311,7 @@ def ab_ms(new, old, reps):
 
 
 def plan_fields(plan):
-    """A K1 or K4a/K5 plan as the kernels line prints it."""
+    """A K1, K7a or K4a/K5 plan as the kernels line prints it."""
     return {k: (list(v) if isinstance(v, tuple) else v)
             for k, v in dataclasses.asdict(plan).items()}
 
@@ -1044,6 +1059,7 @@ def profile_call(fn, span_names, on_card=True):
         "host_spans": host,
         "ift_backward_host_ms": ift_backward_ns / 1e6,
         "top_kernels": {k[:70]: [round(v[0] / 1e3, 3), v[1]] for k, v in top},
+        "kernels_by_name": by_kernel,
     }
     check(not on_card or len(intervals) > 0, "profile: no device activity recorded")
     return out
@@ -1058,8 +1074,25 @@ def phase_profile(mcp, options, thetas, x0=None):
                        (S.SPAN_RESIDUAL, S.SPAN_NEWTON, S.SPAN_LINESEARCH, S.SPAN_LOOP_TEST),
                        thetas.device.type == "cuda")
     del out["ift_backward_host_ms"]
-    log("  profile (one batch): " + json.dumps(out))
+    log("  profile (one batch): " + json.dumps(shown(out)))
     return out
+
+
+def shown(profile):
+    """A ``profile_call`` result without its per-kernel table, for the log."""
+    return {k: v for k, v in profile.items() if k != "kernels_by_name"}
+
+
+def device_ms_per_launch(profile, pattern):
+    """(mean device milliseconds per launch, launches) of the kernels whose
+    name matches ``pattern`` in a ``profile_call`` result: the card's own
+    time for each launch, without the host's cost of issuing it."""
+    us = n = 0
+    for name, (t, count) in profile["kernels_by_name"].items():
+        if re.search(pattern, name):
+            us += t
+            n += count
+    return (us / n / 1e3 if n else None), n
 
 
 # -- timing ----------------------------------------------------------------
@@ -1415,6 +1448,7 @@ def run_flagship(name, s, options, stack, x0, fact, kernel="cr"):
     wall_s = time.perf_counter() - t1
     device_s = start.elapsed_time(end) / 1e3
     launches = read_counts()
+    routes = read_routes()
     tk = true_kkt_errors(s.mcp, res, stack)
     tk64 = certify64(s.mcp, res, stack)
     stats = batch_statistics(res)
@@ -1426,7 +1460,7 @@ def run_flagship(name, s, options, stack, x0, fact, kernel="cr"):
         true_kkt_max_solved=float(tk[solved].max()) if bool(solved.any()) else float("nan"),
         true_kkt64_max_solved=(float(tk64[solved].max()) if bool(solved.any())
                                else float("nan")),
-        window_s_events=device_s, window_s_host=wall_s, launches=launches,
+        window_s_events=device_s, window_s_host=wall_s, launches=launches, routes=routes,
         tightening_rate=options.tightening_rate,
     )
     log(f"  {name} path: " + json.dumps(stats))
@@ -1438,6 +1472,13 @@ def run_flagship(name, s, options, stack, x0, fact, kernel="cr"):
     others = sum(total(c) for k, c in launches.items() if k not in (kernel, "linesearch"))
     check(others == 0 and total(launches[kernel]) == launches[kernel][fact],
           f"{name}: another banded kernel or fact launched {launches}")
+    if kernel == "babe":
+        from mcp_tpu_torch.kernels.thomas_babe import babe_plan
+
+        st = s.mcp.time_structure
+        route = babe_plan(st.block_size, fact, stack.dtype).route
+        check(routes["babe"][route] == launches["babe"][fact],
+              f"{name}: K7a launched off its plan's route {route!r}: {routes['babe']}")
     fused = options.fused_linesearch
     if fused or (fused is None and options.linear_solver in ("tridiag_pallas", "tridiag_auto")):
         check(launches["linesearch"] > 0, f"{name}: K2 never launched")
@@ -1645,20 +1686,23 @@ def ift_watch():
     """While active, the banded IFT's block-tridiagonal solve
     (``diff._band_solve``) goes through a recorder that keeps the operands
     of its first call (``rec["args"]``) and adds up the K7a launches made
-    inside it (``rec["launches"]``, read from the wrapper's count); the solve
-    itself is unchanged."""
+    inside it (``rec["launches"]``, read from the wrapper's count; those on
+    the group route ``rec["group_launches"]``); the solve itself is
+    unchanged."""
     from mcp_tpu_torch import diff
     from mcp_tpu_torch.kernels.thomas_babe import babe_thomas_solve
 
     real = diff._band_solve
-    rec = {"args": None, "launches": 0}
+    rec = {"args": None, "launches": 0, "group_launches": 0}
 
     def solve(tier, *args, **kw):
         if rec["args"] is None:
             rec["args"] = args
         before = total(babe_thomas_solve.launches)
+        group = babe_thomas_solve.route_launches["group"]
         out = real(tier, *args, **kw)
         rec["launches"] += total(babe_thomas_solve.launches) - before
+        rec["group_launches"] += babe_thomas_solve.route_launches["group"] - group
         return out
 
     diff._band_solve = solve
@@ -1668,14 +1712,70 @@ def ift_watch():
         diff._band_solve = real
 
 
+def route_check(kernel, fact, what, args, tol=K3_TOL, route=None):
+    """K1 ("thomas") or K7a ("babe") with ``fact`` against its plain version
+    (``block_check``) on the route its plan gives these bands (``route``:
+    forced by the plan); returns the max absolute difference."""
+    from mcp_tpu_torch.kernels import thomas as K1
+    from mcp_tpu_torch.kernels import thomas_babe as K7
+
+    solve, plain, plan_of, name = {
+        "thomas": (K1.thomas_solve, K1.thomas_solve_plain, K1.thomas_plan, "K1'"),
+        "babe": (K7.babe_thomas_solve, K7.babe_solve_plain, K7.babe_plan, "K7a"),
+    }[kernel]
+    B_, T, b, _ = args[0].shape
+    plan = plan_of(b, fact, args[0].dtype, route=route)
+    before = dict(solve.route_launches)
+    err = block_check(f"{name} {fact} {what} [{plan.route}]",
+                      lambda *a: solve(*a, fact=fact, plan=plan),
+                      lambda *a: plain(*a, fact), args, tol)
+    took = [r for r, n in solve.route_launches.items() if n != before[r]]
+    check(took == [plan.route], f"{name} {fact} ({B_},{T},{b}): launched on route {took}, "
+          f"not {plan.route!r}")
+    return err
+
+
+def babe_zero_blocks(fact, dtype, device, tol):
+    """K7a with ``fact`` on its plan's route, with a zero block at the start
+    of the left chain (system 1) and of the right chain (system 2): the same
+    systems non-finite as in the plain version (under qr those two; a
+    Gauss–Jordan pivot is clamped, so they stay finite), the other systems
+    within ``tol``."""
+    import torch
+
+    from mcp_tpu_torch.kernels.thomas_babe import babe_plan, babe_solve_plain, babe_thomas_solve
+
+    diag, lower, upper, rhs = random_bands((4, 7, 40), dtype, device, 57)
+    diag[1, 0] = 0.0
+    diag[2, 6] = 0.0
+    route = babe_plan(40, fact, dtype).route
+    before = babe_thomas_solve.route_launches[route]
+    xk = babe_thomas_solve(diag, lower, upper, rhs, fact=fact)
+    torch.cuda.synchronize()
+    check(babe_thomas_solve.route_launches[route] == before + 1,
+          f"K7a {fact} zero blocks: not on the route {route!r}")
+    xp = babe_solve_plain(diag, lower, upper, rhs, fact)
+    bad_k = (~torch.isfinite(xk).flatten(1).all(dim=1)).tolist()
+    bad_p = (~torch.isfinite(xp).flatten(1).all(dim=1)).tolist()
+    diff = float((xk[[0, 3]] - xp[[0, 3]]).abs().max() / xp[[0, 3]].abs().max())
+    tag = str(dtype)[6:]
+    log(f"  K7a {fact} zero blocks [{route}] {tag}: non-finite systems kernel={bad_k} "
+        f"plain={bad_p}, max|kernel-plain|/max|plain| over the others {diff:.3e}")
+    check(bad_k == bad_p and (fact != "qr" or bad_p == [False, True, True, False]),
+          f"K7a {fact} zero blocks: finiteness")
+    check(diff <= tol[tag], f"K7a {fact} zero blocks: the other systems differ")
+
+
 def phase_k7a(n4, device):
-    """K7a against its plain version on the card in float32 and float64: the
-    N=4 flagship's first-Newton bands (8, 30, 40), random bands at T = 2, 3,
-    21, 31, the lane-change bands at horizon 20 (T=20, b=20, bands shared
-    over the batch) and zero blocks at each chain's start; then K1 on the
-    route "padded" (B=8, T=10, b=50 and 60; the unpacked one-way sweep K7b
-    of the JAX package) against its plain version. Returns the N=4 float32
-    bands and K7a's max absolute difference on them."""
+    """K7a against its plain version on the card in float32 and float64, on
+    its plan's route (the group route at every shape here): the N=4
+    flagship's first-Newton bands (8, 30, 40), random bands at T = 2, 3, 21,
+    31, the lane-change bands at horizon 20 (T=20, b=20, bands shared over
+    the batch) and zero blocks at each chain's start; the block route forced
+    by the plan on the N=4 bands; then K1 on the route "padded" (B=8, T=10,
+    b=50 and 60; the unpacked one-way sweep K7b of the JAX package) against
+    its plain version. Returns the N=4 float32 bands, K7a's max absolute
+    difference on them and the lane-change bands at horizon 20 by dtype."""
     import torch
 
     from mcp_tpu_torch.bench import lane_change as lc
@@ -1690,33 +1790,21 @@ def phase_k7a(n4, device):
     check(TD.kernel_mode(FLAG_B, FLAG_T, 40, 4) == "babe" and TD.kernel_mode(64, 20, 20, 4)
           == "babe", "K7a: tier tridiag_pallas does not route the checked shapes to K7a")
     bands = err = None
+    lane20 = {}
     for dtype in (f32, f64):
         real = first_newton_bands(n4.mcp, n4.thetas.to(dtype), n4.x0.to(dtype))
-        e = fact_check("babe", "qr", "N=4 first Newton step ({})".format(
-            "x".join(map(str, real[0].shape[:3]))), real)
+        what = "N=4 first Newton step ({})".format("x".join(map(str, real[0].shape[:3])))
+        e = route_check("babe", "qr", what, real)
+        route_check("babe", "qr", what, real, route="block")
         if dtype == f32:
             bands, err = real, e
         for T, b in ((2, 40), (3, 40), (21, 20), (31, 40)):
-            fact_check("babe", "qr", f"random ({FLAG_B}x{T}x{b})",
-                       random_bands((FLAG_B, T, b), dtype, device, 50 + T))
-        fact_check("babe", "qr", "lane-change first Newton step (64x20x20, shared bands)",
-                  first_newton_bands(lane.parametric_game.mcp, lane_th.to(dtype)))
-    # A zero block at the start of the left chain (system 1) and of the
-    # right chain (system 2): inf/NaN in those systems only, as in the plain
-    # version; the others agree.
-    diag, lower, upper, rhs = random_bands((4, 7, 40), f32, device, 57)
-    diag[1, 0] = 0.0
-    diag[2, 6] = 0.0
-    xk = babe_thomas_solve(diag, lower, upper, rhs)
-    torch.cuda.synchronize()
-    xp = babe_solve_plain(diag, lower, upper, rhs)
-    bad_k = (~torch.isfinite(xk).flatten(1).all(dim=1)).tolist()
-    bad_p = (~torch.isfinite(xp).flatten(1).all(dim=1)).tolist()
-    diff = float((xk[[0, 3]] - xp[[0, 3]]).abs().max() / xp[[0, 3]].abs().max())
-    log(f"  K7a zero blocks: non-finite systems kernel={bad_k} plain={bad_p}, "
-        f"max|kernel-plain|/max|plain| over the others {diff:.3e}")
-    check(bad_k == bad_p == [False, True, True, False], "K7a zero blocks: finiteness")
-    check(diff <= K3_TOL["float32"], "K7a zero blocks: the other systems differ")
+            route_check("babe", "qr", f"random ({FLAG_B}x{T}x{b})",
+                        random_bands((FLAG_B, T, b), dtype, device, 50 + T))
+        lane20[dtype] = first_newton_bands(lane.parametric_game.mcp, lane_th.to(dtype))
+        route_check("babe", "qr", "lane-change first Newton step (64x20x20, shared bands)",
+                    lane20[dtype])
+    babe_zero_blocks("qr", f32, device, K3_TOL)
     for b in (50, 60):
         check(TD.kernel_mode(FLAG_B, 10, b, 4) == "padded"
               and TD.route_solver(FLAG_B, 10, b, 4) is thomas_solve,
@@ -1724,7 +1812,7 @@ def phase_k7a(n4, device):
         for dtype, tol in ((f32, K1_TOL), (f64, K1_F64_TOL)):
             k1_check(f"padded route ({FLAG_B},10,{b}) {str(dtype)[6:]}",
                      random_bands((FLAG_B, 10, b), dtype, device, b), tol)
-    return bands, err
+    return bands, err, lane20
 
 
 def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
@@ -1784,9 +1872,12 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
             log(f"  train step {i}: " + json.dumps(rows[-1]))
     window = time.perf_counter() - t_window
     counts = read_counts()
+    routes = read_routes()["babe"]
     launches = {
         "babe_forward": counts["babe"]["qr"] - w["launches"],
         "babe_backward": w["launches"],
+        "babe_routes": routes,
+        "babe_backward_group": w["group_launches"],
         "babe_other_facts": total(counts["babe"]) - counts["babe"]["qr"],
         "linesearch": counts["linesearch"],
         "thomas": total(counts["thomas"]),
@@ -1805,6 +1896,9 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
           f"training: step success {stats['forward_success_min']} < {TRAIN_STEP_MIN_SUCCESS}")
     check(launches["babe_forward"] > 0 and launches["babe_backward"] > 0,
           f"training: K7a not launched in both passes {launches}")
+    check(routes["block"] == 0 and routes["group"] == total(counts["babe"])
+          and launches["babe_backward_group"] == launches["babe_backward"],
+          f"training: K7a launched off the group route {launches}")
     check(launches["linesearch"] > 0, "training: K2 never launched")
     check(launches["thomas"] == 0 and not any(launches["cr_thomas_solve"].values())
           and launches["babe_other_facts"] == 0,
@@ -1832,6 +1926,9 @@ def phase_train_gradients(device):
     with ift_watch() as w:
         loss, (_, status), grads = train_step(s.model, s.trajectories, s.init, s.goals)
     check(bool((status == SOLVED).all()), f"gradient check: status {status.tolist()}")
+    check(w["launches"] > 0 and w["group_launches"] == w["launches"],
+          f"gradient check: the float64 IFT's K7a launches {w['launches']}, on the group "
+          f"route {w['group_launches']}")
     gnorm = math.sqrt(sum(float((g * g).sum()) for g in grads))
     gen = torch.Generator().manual_seed(5)
     rnd = [torch.randn(g.shape, generator=gen, dtype=f64).to(device) for g in grads]
@@ -1907,32 +2004,63 @@ def babe_counts(Bn, T, b, shared_bands, itemsize=4, fact="qr"):
     return nbytes, Bn * flops
 
 
+def babe_ab(args, fact, reps=20):
+    """(plan's route, block route) mean ms of K7a with ``fact`` on ``args``,
+    the block route forced by the plan, in turns (``ab_ms``)."""
+    from mcp_tpu_torch.kernels.thomas_babe import babe_plan, babe_thomas_solve
+
+    b, dtype = args[0].shape[-1], args[0].dtype
+    plan, old = babe_plan(b, fact, dtype), babe_plan(b, fact, dtype, route="block")
+    return ab_ms(lambda: babe_thomas_solve(*args, fact=fact, plan=plan),
+                 lambda: babe_thomas_solve(*args, fact=fact, plan=old), reps)
+
+
+def babe_f64_ab(args, fact):
+    """``babe_ab`` in float64, logged and returned as a dict."""
+    from mcp_tpu_torch.kernels.thomas_babe import babe_plan
+
+    Bn, T, b, _ = args[0].shape
+    route = babe_plan(b, fact, args[0].dtype).route
+    ms, old_ms = babe_ab(args, fact)
+    log(f"  K7a {fact} ({Bn},{T},{b}) float64: {route} route {ms:.4f} ms, block route "
+        f"{old_ms:.4f} ms, in turns")
+    return {"plan_route": route, "ms": ms, "block_ms": old_ms}
+
+
 def phase_k7a_timing(bands, err, launches):
     """K7a at the N=4 first-Newton bands beside its bound, its plain version
-    and a dense torch.linalg.solve of the same system; then K7a, K1 and K3
-    gjp on those bands at B=8 and B=128 (the mid-block threshold data)."""
+    and a dense torch.linalg.solve of the same system, on its plan's route
+    against the block route in turns (float32 and float64); then K7a, K1
+    and K3 gjp on those bands at B=8 and B=128 (the mid-block threshold
+    data)."""
     import torch
 
     from mcp_tpu_torch.kernels.cyclic_reduction import cr_thomas_solve
     from mcp_tpu_torch.kernels.thomas import thomas_solve
-    from mcp_tpu_torch.kernels.thomas_babe import babe_solve_plain, babe_thomas_solve
+    from mcp_tpu_torch.kernels.thomas_babe import babe_plan, babe_solve_plain, babe_thomas_solve
 
     Bn, T, b, _ = bands[0].shape
     nbytes, flops = babe_counts(Bn, T, b, bands[1].stride(0) == 0)
     b_ms, b_by = bound(nbytes, flops)
     A, r = dense_block_system(*bands)
+    # The plan's route against the block route forced by the plan, in turns;
+    # then the same in float64.
+    plan = babe_plan(b, "qr", bands[0].dtype)
+    ms, old_ms = babe_ab(bands, "qr")
     entry = {
         "name": "babe_thomas_solve", "route": "cuda",
         "source": "mcp_tpu_torch/kernels/csrc/thomas_babe.cu",
         "replaces": "mcp_tpu/kernels/thomas_pallas.py:737",
         "launches": launches["babe_forward"] + launches["babe_backward"],
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: babe_thomas_solve(*bands), 30),
+        "max_abs_err": err, "ms": ms,
         "plain_ms": cuda_ms(lambda: babe_solve_plain(*bands), 3),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: torch.linalg.solve(A, r), 5),
+        "plan": plan_fields(plan), "old_route_ms": old_ms,
+        "float64_routes": {"qr": babe_f64_ab(tuple(a.double() for a in bands), "qr")},
     }
-    log(f"  K7a N=4 ({Bn},{T},{b}): {entry['ms']:.4f} ms (plain {entry['plain_ms']:.3f} ms, "
+    log(f"  K7a N=4 ({Bn},{T},{b}): {entry['ms']:.4f} ms on route {plan.route} (block route "
+        f"{old_ms:.4f} ms; plain {entry['plain_ms']:.3f} ms, "
         f"bound {b_ms:.5f} ms by {b_by} [{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB], "
         f"dense solve {entry['library_ms']:.3f} ms); launches {entry['launches']} in the "
         f"training window ({launches['babe_forward']} forward, {launches['babe_backward']} "
@@ -1947,6 +2075,18 @@ def phase_k7a_timing(bands, err, launches):
     return entry
 
 
+def device_time(name, kernels, profile, pattern):
+    """Add the device milliseconds per launch of kernel ``pattern`` in
+    ``profile`` to the entry ``name`` of the kernels line (``device_ms``,
+    beside the CUDA-event time of back-to-back wrapper calls, ``ms``)."""
+    ms, n = device_ms_per_launch(profile, pattern)
+    check(n > 0, f"profile: {name}'s kernel ({pattern}) not in the profile")
+    entry = next(k for k in kernels if k["name"] == name)
+    entry["device_ms"], entry["device_launches"] = ms, n
+    log(f"  {name}: device time {ms:.5f} ms per launch over {n} launches in the profile "
+        f"(wrapper calls back to back, CUDA events: {entry['ms']:.5f} ms)")
+
+
 def phase_train_profile(s):
     """One train step under torch.profiler (``profile_call``): the solver's
     and the IFT's spans, and the IFT backward's share of the step (the rest
@@ -1959,7 +2099,7 @@ def phase_train_profile(s):
                         diff.SPAN_IFT_BANDS, diff.SPAN_IFT_SOLVE),
                        s.init.device.type == "cuda")
     out["ift_backward_share"] = out["ift_backward_host_ms"] / out["wall_ms_profiled"]
-    log("  profile (one train step): " + json.dumps(out))
+    log("  profile (one train step): " + json.dumps(shown(out)))
     return out
 
 # -- the Gauss–Jordan facts of K1′, K7a and K3 (the fact tiers) ------------
@@ -1971,9 +2111,10 @@ def phase_fact_kernels(n4, n10, device):
     (K1′ and K3), the N=4 first-Newton bands (K7a and K3), the N=10 bands
     (K3; gjbpr also in float64), random bands (K1′ at
     (256, 10, 20) and (3, 7, 5); K7a at T = 21 and 29, where the right chain
-    of the JAX package starts on its identity pad). Returns ({shape: float32
-    bands}, {(kernel, fact): max abs error on the float32 bands of the
-    fact's path})."""
+    of the JAX package starts on its identity pad), K7a on its plan's route.
+    Returns ({shape: float32 bands, and the N=4 bands in float64},
+    {(kernel, fact): max abs error on the float32 bands of the fact's
+    path})."""
     import torch
 
     from mcp_tpu_torch.kernels.solve_aug import FACTS
@@ -1987,6 +2128,8 @@ def phase_fact_kernels(n4, n10, device):
         n4b = first_newton_bands(n4.mcp, n4.thetas.to(dtype), n4.x0.to(dtype))
         if dtype == f32:
             bands["lane"], bands["N=4"] = lane, n4b
+        else:
+            bands["N=4 float64"] = n4b
         for fact in ("gj", "gjp", "gjpr"):
             e = check_fact("thomas", fact, f"lane-change first Newton step ({shape(lane)})", lane)
             if dtype == f32:
@@ -1998,13 +2141,15 @@ def phase_fact_kernels(n4, n10, device):
             # where the register budget holds, b = 33 on the block route.
             for b in (1, 20, 32, 33):
                 for T in (1, 10):
-                    k1_fact_route_check(fact, random_bands((8, T, b), dtype, device, 90 + b + T))
-            e = check_fact("babe", fact, f"N=4 first Newton step ({shape(n4b)})", n4b)
+                    route_check("thomas", fact, f"random (8x{T}x{b})",
+                                random_bands((8, T, b), dtype, device, 90 + b + T), FACT_TOL)
+            e = route_check("babe", fact, f"N=4 first Newton step ({shape(n4b)})", n4b,
+                            FACT_TOL)
             if dtype == f32:
                 errs["babe", fact] = e
             for T in (21, 29):
-                check_fact("babe", fact, f"random ({FLAG_B}x{T}x40)",
-                           random_bands((FLAG_B, T, 40), dtype, device, 60 + T))
+                route_check("babe", fact, f"random ({FLAG_B}x{T}x40)",
+                            random_bands((FLAG_B, T, 40), dtype, device, 60 + T), FACT_TOL)
         for fact in FACTS:
             if fact in ("qr", "gjp", "gjpr"):
                 continue  # phase 13
@@ -2025,17 +2170,27 @@ def phase_fact_kernels(n4, n10, device):
     return bands, errs
 
 
-def k1_fact_route_check(fact, args):
-    """K1′ with ``fact`` against its plain version (``FACT_TOL``), on the
-    route its plan gives these bands."""
-    from mcp_tpu_torch.kernels.thomas import thomas_plan, thomas_solve
+def phase_k7a_facts(lane20, ift_bands, ift64_bands, fact_bands, device):
+    """K7a's Gauss–Jordan facts on the rest of the shapes phase 20 holds qr
+    to, on the plan's route (``FACT_TOL``): the lane-change bands at
+    horizon 20 (64, 20, 20, shared bands) and zero blocks in both dtypes,
+    the IFT's transposed bands of the training step (8, 30, 40) and of the
+    float64 gradient check (2, 30, 40); and the block route forced by the
+    plan on the N=4 bands beside the group route's difference there."""
+    import torch
 
-    B_, T, b, _ = args[0].shape
-    route = thomas_plan(b, fact, args[0].dtype).route
-    before = dict(thomas_solve.route_launches)
-    fact_check("thomas", fact, f"random ({B_}x{T}x{b}) [{route}]", args, tol=FACT_TOL)
-    took = [r for r, n in thomas_solve.route_launches.items() if n != before[r]]
-    check(took == [route], f"K1' {fact} ({B_},{T},{b}): launched on route {took}, not {route!r}")
+    for fact in ("gj", "gjp", "gjpr"):
+        for dtype in (torch.float32, torch.float64):
+            route_check("babe", fact, "lane-change first Newton step (64x20x20, shared bands)",
+                        lane20[dtype], FACT_TOL)
+            babe_zero_blocks(fact, dtype, device, FACT_TOL)
+        route_check("babe", fact, "IFT transposed bands at a training-step solution (8x30x40)",
+                    ift_bands, FACT_TOL)
+        route_check("babe", fact, "IFT transposed bands at a float64 training-step solution "
+                    "(2x30x40)", ift64_bands, FACT_TOL)
+        for key in ("N=4", "N=4 float64"):
+            route_check("babe", fact, "N=4 first Newton step (8x30x40)", fact_bands[key],
+                        FACT_TOL, route="block")
 
 
 def phase_path_b(device, seed=2030):
@@ -2130,6 +2285,7 @@ def phase_fact_timing(bands, errs, launches, device):
                                                  "gjbprl")]
     rows += [("cr", "gjbpr", "N=4", ("gjbpr", "N=4"))]
     from mcp_tpu_torch.kernels.thomas import thomas_plan, thomas_solve
+    from mcp_tpu_torch.kernels.thomas_babe import babe_plan
 
     kernels = []
     for kernel, fact, key, ekey in rows:
@@ -2153,6 +2309,12 @@ def phase_fact_timing(bands, errs, launches, device):
             ms, old_ms = ab_ms(lambda: thomas_solve(*args, fact=fact, plan=plan),
                                lambda: thomas_solve(*args, fact=fact, plan=old), 20)
             extra = {"plan": plan_fields(plan), "old_route_ms": old_ms}
+        elif kernel == "babe":
+            # K7a: the same, and in float64 on the N=4 bands.
+            ms, old_ms = babe_ab(args, fact)
+            extra = {"plan": plan_fields(babe_plan(b, fact, args[0].dtype)),
+                     "old_route_ms": old_ms,
+                     "float64_routes": {fact: babe_f64_ab(bands["N=4 float64"], fact)}}
         else:
             ms = cuda_ms(lambda: fact_solver(kernel, fact)(*args), 20)
         entry = {
@@ -2785,7 +2947,8 @@ def main() -> int:
     kernels = phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs,
                            {"gj_solve": gj_launches, **tier_launches})
     phase("11: profile of one main-path batch")
-    phase_profile(mcp, options, stack[0])
+    main_profile = phase_profile(mcp, options, stack[0])
+    device_time("linesearch_update", kernels, main_profile, K2_KERNEL)
     phase("12: profile of one QP batch")
     phase_profile(qp_mcp, qp_options, qp_stack[0])
     phase("13: K3 (cyclic reduction), and K2 at the flagship shapes, vs plain")
@@ -2809,22 +2972,22 @@ def main() -> int:
                                                max_inner_iters=N10_PROFILE_INNER),
                   n10.thetas, x0=n10.x0)
     phase("20: K7a (two-way sweep), and K1 on the padded route, vs plain")
-    k7a_bands, k7a_err = phase_k7a(n4, device)
+    k7a_bands, k7a_err, lane20 = phase_k7a(n4, device)
     phase(f"21: training path (N=4, horizon 30, batch {TRAIN_B}, tridiag_pallas)")
     train, ift_bands, train_launches, _ = phase_train_path(device)
-    fact_check("babe", "qr", "IFT transposed bands at a training-step solution (8x30x40)",
-               ift_bands)
+    route_check("babe", "qr", "IFT transposed bands at a training-step solution (8x30x40)",
+                ift_bands)
     phase(f"22: gradient checks ({GRAD_B} lanes)")
     ift64_bands, _ = phase_train_gradients(device)
-    fact_check("babe", "qr", "IFT transposed bands at a float64 training-step solution "
-               "(2x30x40)",
-              ift64_bands)
-    phase("23: K7a timing")
+    route_check("babe", "qr", "IFT transposed bands at a float64 training-step solution "
+                "(2x30x40)", ift64_bands)
+    phase("23: K7a timing (the plan's route against the block route)")
     kernels.append(phase_k7a_timing(k7a_bands, k7a_err, train_launches))
     phase("24: profile of one train step")
-    phase_train_profile(train)
+    device_time("babe_thomas_solve", kernels, phase_train_profile(train), K7A_GROUP_KERNEL)
     phase("25: the Gauss–Jordan facts of K1', K7a and K3 vs plain")
     fact_bands, fact_errs = phase_fact_kernels(n4, n10, device)
+    phase_k7a_facts(lane20, ift_bands, ift64_bands, fact_bands, device)
     phase(f"26: path A, lane-change headline on tridiag_pallas_gjpr ({B * K_BATCHES} instances)")
     _, _, _, _, a_launches = phase_main_path(device, tier="tridiag_pallas_gjpr", fact="gjpr",
                                              name="path A", fused_linesearch=True)
