@@ -41,8 +41,10 @@ against a float64 CPU reference, checks the training gradient against
 finite differences (float64) and against the CPU's float64 gradient, times
 each kernel (and each fact) beside its bound, its plain version and a
 library call, times K1 (and its facts), K4a and K5 on their plan's route
-(registers: one warp per system, or a 256-thread tile) against the old
-block route in turns, and K7a (each fact, float32 and float64) on its
+(registers: one warp per system, or a 256-thread tile), K4b/K4c (a lane
+pair per column of [A | b]) and K6 (a thread per column of the step's
+working matrix), float32 and float64, against the old block route in
+turns, and K7a (each fact, float32 and float64) on its
 plan's route (one 128-thread group per sweep direction, a column of the
 working matrix per thread in registers) against its block route in turns,
 reads the device time per launch of K2 and K7a from the profiles, times
@@ -692,15 +694,16 @@ def backward_error(A, b, x):
 def dense_check(name, fn, plain, A, b, plan=None):
     """Kernel against plain on (A, b), with GJ_TOL for the Gauss–Jordan
     kernels (K4a/K5 on ``plan``, default ``gj_plan``'s); the QR kernels
-    (K4b/K4c, K8a, K8b) are held to QR_TOL (condition-scaled) and to
-    QR_BWD_TOL (backward error, condition-free). Returns the max absolute
-    difference."""
+    (K4b/K4c on ``plan``, default ``qr_plan``'s, K8a, K8b) are held to
+    QR_TOL (condition-scaled) and to QR_BWD_TOL (backward error,
+    condition-free). Returns the max absolute difference."""
     import torch
 
     from mcp_tpu_torch.kernels.linear_solve import (
         gauss_solve,
         gj_plan,
         pallas_gauss_solve,
+        qr_plan,
         wy_solve,
     )
 
@@ -708,8 +711,10 @@ def dense_check(name, fn, plain, A, b, plan=None):
     got = fn(A, b) if plan is None else fn(A, b, plan=plan)
     torch.cuda.synchronize()
     if routes:
-        # K4a/K5: the launch took the route of its plan.
-        want_route = (plan or gj_plan(A.shape[-1], isinstance(got, tuple), A.dtype)).route
+        # K4a/K5, K4b/K4c: the launch took the route of its plan.
+        n = A.shape[-1]
+        want_route = (plan or (qr_plan(n, A.dtype) if fn is gauss_solve
+                               else gj_plan(n, isinstance(got, tuple), A.dtype))).route
         took = [r for r, k in fn.route_launches.items() if k != routes[r]]
         check(took == [want_route], f"{name}: launched on route {took}, not {want_route!r}")
     want = plain(A, b)
@@ -743,8 +748,10 @@ def phase_dense_kernels(device):
     """K4a, K4b/K4c and K5 against their plain versions on the card, in
     float32 and float64: random SPD, random and saddle-point systems, the
     real QP Schur systems at the cold start and at the returned (late)
-    Mehrotra iterate, and a zero pivot. Returns (cold-start f32 Schur
-    system, {kernel: max abs error on the real f32 systems})."""
+    Mehrotra iterate, and a zero pivot; each launch asserted on its plan's
+    route, and each kernel also on its block route forced and beyond its
+    register route's range. Returns (cold-start f32 Schur system, {kernel:
+    max abs error on the real f32 systems})."""
     import torch
 
     from mcp_tpu_torch import SolverOptions, solve_batch
@@ -767,6 +774,17 @@ def phase_dense_kernels(device):
             ("random (5,10)", random_systems(5, 10, dtype, device, 24)),
         ):
             dense_check(f"gauss_solve {what} {tag}", L.gauss_solve, L.qr_solve_plain, *systems)
+        # K4b/K4c: every check above ran on the plan's route (the pair route
+        # in both dtypes). The block route: (256,100) forced by the plan, the
+        # other half of phase 10's A/B, and the first order over the pair
+        # route (n = 128 in float32, 105 in float64).
+        check(L.qr_plan(QP_N, dtype).route == "pair", f"gauss_solve: n={QP_N} in {tag} "
+              "is not on the pair route")
+        dense_check(f"gauss_solve SPD (256,100) {tag} [block, forced]", L.gauss_solve,
+                    L.qr_solve_plain, *spd, plan=L.qr_plan(QP_N, dtype, route="block"))
+        beyond = next(n for n in range(1, 129) if L.qr_plan(n, dtype).route == "block")
+        dense_check(f"gauss_solve random (256,{beyond}) {tag} [block]", L.gauss_solve,
+                    L.qr_solve_plain, *random_systems(B, beyond, dtype, device, 32))
         # K4a/K5 over the tile route's range: n = 12 and 128 (its edge) and
         # a batch of 5 at n = 10.
         for what, systems in (
@@ -822,16 +840,25 @@ def phase_dense_kernels(device):
     A, b = spd_systems(4, QP_N, f32, device, 25)
     A[2, 0, :] = 0.0
     A[2, :, 0] = 0.0
-    # K4a/K5 on their plan's route, then on the block route forced.
+    # K4a/K5 and K4b/K4c on their plan's route, then on the block route
+    # forced.
     cases = [(name, fn, plain, None) for name, fn, plain in (gj, gji, qr)]
     cases += [(f"{name} [block, forced]", fn, plain,
                L.gj_plan(QP_N, fn is L.gji_solve, f32, route="block"))
               for name, fn, plain in (gj, gji)]
+    cases.append(("gauss_solve [block, forced]", L.gauss_solve, L.qr_solve_plain,
+                  L.qr_plan(QP_N, f32, route="block")))
     for name, fn, plain, plan in cases:
+        routes = dict(fn.route_launches)
         got = fn(A, b) if plan is None else fn(A, b, plan=plan)
         want = plain(A, b)
         torch.cuda.synchronize()
         x, xp = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+        want_route = (plan or (L.qr_plan(QP_N, f32) if fn is L.gauss_solve
+                               else L.gj_plan(QP_N, fn is L.gji_solve, f32))).route
+        took = [r for r, k in fn.route_launches.items() if k != routes[r]]
+        check(took == [want_route], f"{name} zero pivot: launched on route {took}, "
+              f"not {want_route!r}")
         bad = (~torch.isfinite(x).all(dim=1)).tolist()
         bad_p = (~torch.isfinite(xp).all(dim=1)).tolist()
         big = float(x[2].abs().max())
@@ -937,7 +964,8 @@ def phase_qp_path(device, batch=B, k_batches=K_BATCHES, seed=2027):
 def phase_qp_tiers(mcp, options, device, seed=2028):
     """One batch of 256 fresh θ on tier "schur_pallas" (Mehrotra, K4b/K4c)
     and one on "schur_pallas_gjr" with algorithm "ip" (K5), each with its
-    kernel's launch count set to 0 just before and read just after."""
+    kernel's launch counts set to 0 just before and read just after: every
+    launch on its plan's route."""
     import dataclasses
 
     import torch
@@ -954,21 +982,23 @@ def phase_qp_tiers(mcp, options, device, seed=2028):
                                          device=device)
         opts = dataclasses.replace(options, linear_solver=tier, algorithm=algorithm)
         wrapper.launches = 0
-        if hasattr(wrapper, "route_launches"):
-            wrapper.route_launches = dict.fromkeys(wrapper.route_launches, 0)
+        wrapper.route_launches = dict.fromkeys(wrapper.route_launches, 0)
         res = solve_batch(mcp, th, options=opts)
         torch.cuda.synchronize()
         launches[wrapper.__name__] = wrapper.launches
-        if wrapper is L.gji_solve:
-            route = L.gj_plan(QP_N, True, torch.float32).route
-            check(wrapper.route_launches[route] == wrapper.launches,
-                  f"tier {tier}: K5 launched off its plan's route {route!r}: "
-                  f"{wrapper.route_launches}")
+        # Every launch of the tier batch on the plan's route (K5: gj_plan's,
+        # K4b/K4c: qr_plan's).
+        route = (L.gj_plan(QP_N, True, torch.float32) if wrapper is L.gji_solve
+                 else L.qr_plan(QP_N, torch.float32)).route
+        check(wrapper.route_launches[route] == wrapper.launches,
+              f"tier {tier}: {wrapper.__name__} launched off its plan's route {route!r}: "
+              f"{wrapper.route_launches}")
         tk = certify64(mcp, res, th)
         solved = res.status == SOLVED
         log(f"  tier {tier} ({algorithm}): success {float(solved.double().mean())}, "
             f"median iterations {float(res.outer_iters.double().median())}, "
-            f"{wrapper.__name__} launches {wrapper.launches}, max float64 true KKT of "
+            f"{wrapper.__name__} launches {wrapper.launches} (by route "
+            f"{wrapper.route_launches}), max float64 true KKT of "
             f"a SOLVED lane {float(tk[solved].max()) if bool(solved.any()) else float('nan'):.3e}")
         check(wrapper.launches > 0, f"tier {tier}: {wrapper.__name__} never launched")
         check(not bool((solved & (tk > options.tol)).any()),
@@ -1267,7 +1297,27 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 20),
         }
         if kind == "qr":
-            entry["ms"] = cuda_ms(lambda: fn(A, b), 50)
+            # K4b/K4c: the plan's route against the block route, in turns,
+            # in float32 and in float64 (the same systems in float64).
+            plan, old = L.qr_plan(n, A.dtype), L.qr_plan(n, A.dtype, route="block")
+            entry["ms"], entry["old_route_ms"] = ab_ms(
+                lambda: fn(A, b, plan=plan), lambda: fn(A, b, plan=old), 50)
+            entry["device_ms"], entry["old_route_device_ms"] = route_device_ms(
+                lambda: fn(A, b, plan=plan), lambda: fn(A, b, plan=old),
+                (r"\bqr_pair_kernel<", r"\bqr_kernel<"))
+            log(f"  K4b/K4c (gauss_solve) ({Bn},{n}) float32: device time per launch "
+                f"{entry['device_ms']:.4f} ms on route {plan.route}, block route "
+                f"{entry['old_route_device_ms']:.4f} ms (profiled)")
+            entry["plan"] = plan_fields(plan)
+            A64, b64 = A.double(), b.double()
+            pair64, block64 = (L.qr_plan(n, torch.float64, route=r) for r in ("pair", "block"))
+            new64, old64 = ab_ms(lambda: fn(A64, b64, plan=pair64),
+                                 lambda: fn(A64, b64, plan=block64), 20)
+            entry["float64_routes"] = {"plan_route": L.qr_plan(n, torch.float64).route,
+                                       "pair_ms": new64, "block_ms": old64}
+            log(f"  K4b/K4c (gauss_solve) ({Bn},{n}) float64: pair route {new64:.4f} ms, "
+                f"block route {old64:.4f} ms, in turns; the plan takes "
+                f"{entry['float64_routes']['plan_route']}")
         else:
             # K4a/K5: the plan's route against the block route, in turns.
             plan = L.gj_plan(n, kind == "gji", A.dtype)
@@ -1282,7 +1332,21 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
             f"{k['bound_ms']:.5f} ms by {k['bound_by']}, library {k['library_ms']})"
             + (f"; route {k['plan']['route']}, block route {k['old_route_ms']:.4f} ms"
                if "plan" in k else ""))
-    return kernels
+    # K6's device time per launch on both routes, at the lane-change SPIKE
+    # operands of phase 30 (slab 0 of 2), profiled here: a profile of the
+    # same calls in phase 30 or 35 recorded no device activity, where one in
+    # a fresh process records every launch.
+    from mcp_tpu_torch.kernels.thomas_multi import multi_plan, thomas_solve_multi
+
+    k6_args = spike_slab(real_bands, 0, 2)
+    _, _, b6, k6 = k6_args[3].shape
+    group, block = (multi_plan(b6, k6, k6_args[0].dtype, route=r) for r in ("group", "block"))
+    k6_device = route_device_ms(lambda: thomas_solve_multi(*k6_args, plan=group),
+                                lambda: thomas_solve_multi(*k6_args, plan=block),
+                                (r"\bmulti_group_kernel<", r"\bmulti_kernel<"))
+    log(f"  K6 {tuple(k6_args[3].shape)} float32: device time per launch {k6_device[0]:.4f} ms "
+        f"on the group route, block route {k6_device[1]:.4f} ms (profiled)")
+    return kernels, k6_device
 
 
 # -- K3 and the masked N-player flagships ----------------------------------
@@ -2087,6 +2151,27 @@ def device_time(name, kernels, profile, pattern):
         f"(wrapper calls back to back, CUDA events: {entry['ms']:.5f} ms)")
 
 
+def route_device_ms(new, old, patterns, reps=20):
+    """Device milliseconds per launch of a kernel's plan route and its block
+    route (``patterns``: their kernel names), each called ``reps`` times back
+    to back under one profile: the card's own time, without the host's cost
+    of issuing the calls, which back-to-back wrapper calls of a kernel this
+    short can approach."""
+
+    def run():
+        for fn in (new, old):
+            for _ in range(reps):
+                fn()
+
+    profile = profile_call(run, ())
+    out = []
+    for pattern in patterns:
+        ms, n = device_ms_per_launch(profile, pattern)
+        check(n == reps, f"profile: {n} launches of {pattern}, not {reps}")
+        out.append(ms)
+    return out
+
+
 def phase_train_profile(s):
     """One train step under torch.profiler (``profile_call``): the solver's
     and the IFT's spans, and the IFT backward's share of the step (the rest
@@ -2408,16 +2493,27 @@ def fold_columns(args, X):
     return (rep(diag), rep(lower), rep(upper), cols(R)), cols(X)
 
 
-def multi_check(label, args):
-    """K6 against its plain version (``K6_TOL`` relative to max|x|, and the
+def multi_check(label, args, plan=None):
+    """K6 on ``plan`` (default ``multi_plan``'s; the launch asserted on its
+    route) against its plain version (``K6_TOL`` relative to max|x|, and the
     backward error of each lane and column: ≤ 100 ε or ≤ 2x the plain
     version's). Returns the max absolute difference."""
     import torch
 
-    from mcp_tpu_torch.kernels.thomas_multi import thomas_solve_multi, thomas_solve_multi_plain
+    from mcp_tpu_torch.kernels.thomas_multi import (
+        multi_plan,
+        thomas_solve_multi,
+        thomas_solve_multi_plain,
+    )
 
-    xk = thomas_solve_multi(*args)
+    _, _, b, k = args[3].shape
+    want_route = (plan or multi_plan(b, k, args[0].dtype)).route
+    routes = dict(thomas_solve_multi.route_launches)
+    xk = thomas_solve_multi(*args, plan=plan)
     torch.cuda.synchronize()
+    took = [r for r, n in thomas_solve_multi.route_launches.items() if n != routes[r]]
+    check(took == [want_route], f"K6 {label}: launched on route {took}, not {want_route!r}")
+    label = f"{label} [{want_route}{', forced' if plan else ''}]"
     xp = thomas_solve_multi_plain(*args)
     tag = str(args[0].dtype)[6:]
     err = float((xk - xp).abs().max())
@@ -2456,12 +2552,17 @@ def t64_problem(device, dtype):
 
 
 def phase_k6(real_bands, n4, device):
-    """K6 against its plain version at the three SPIKE shapes in float32 and
-    float64, and a zero pivot. Returns (the lane-change f32 operands, the max
-    abs error there)."""
+    """K6 on its plan's route against its plain version at the three SPIKE
+    shapes in float32 and float64, on the block route forced at the lane
+    change's shape, and a zero pivot on both routes. Returns (the
+    lane-change f32 operands, the max abs error there)."""
     import torch
 
-    from mcp_tpu_torch.kernels.thomas_multi import thomas_solve_multi, thomas_solve_multi_plain
+    from mcp_tpu_torch.kernels.thomas_multi import (
+        multi_plan,
+        thomas_solve_multi,
+        thomas_solve_multi_plain,
+    )
 
     f32, f64 = torch.float32, torch.float64
     mcp64, th64, x64 = t64_problem(device, f64)
@@ -2478,19 +2579,32 @@ def phase_k6(real_bands, n4, device):
         for dt in (f32, f64):
             args = make(dt)
             e = multi_check(name, args)
-            if name == "lane change D=2" and dt == f32:
-                lane_args, err = args, e
-    # A zero pivot gives non-finite x in both versions, on that system only.
+            if name == "lane change D=2":
+                # The block route forced by the plan: the other half of
+                # phase 35's A/B.
+                _, _, b, k = args[3].shape
+                check(multi_plan(b, k, dt).route == "group",
+                      f"K6 {name}: not on the group route in {dt}")
+                multi_check(name, args, plan=multi_plan(b, k, dt, route="block"))
+                if dt == f32:
+                    lane_args, err = args, e
+    # A zero pivot gives non-finite x in both versions, on that system only,
+    # on the plan's route (group) and on the block route forced.
     diag, lower, upper, rhs = random_bands((4, 5, 20), f32, device, 7)
     R = torch.randn((4, 5, 20, 41), generator=torch.Generator().manual_seed(8)).to(device)
     diag[2, 0] = 0.0
-    xk = thomas_solve_multi(diag, lower, upper, R)
     xp = thomas_solve_multi_plain(diag, lower, upper, R)
-    torch.cuda.synchronize()
-    bad_k = (~torch.isfinite(xk).flatten(1).all(dim=1)).tolist()
     bad_p = (~torch.isfinite(xp).flatten(1).all(dim=1)).tolist()
-    log(f"  K6 zero pivot: non-finite systems kernel={bad_k} plain={bad_p}")
-    check(bad_k == bad_p == [False, False, True, False], "K6 zero pivot")
+    for plan in (multi_plan(20, 41, f32), multi_plan(20, 41, f32, route="block")):
+        xk = thomas_solve_multi(diag, lower, upper, R, plan=plan)
+        torch.cuda.synchronize()
+        bad_k = (~torch.isfinite(xk).flatten(1).all(dim=1)).tolist()
+        others = float((xk[[0, 1, 3]] - xp[[0, 1, 3]]).abs().max())
+        log(f"  K6 zero pivot [{plan.route}]: non-finite systems kernel={bad_k} plain={bad_p}, "
+            f"other systems max|kernel-plain| {others:.3e}")
+        check(bad_k == bad_p == [False, False, True, False], f"K6 zero pivot [{plan.route}]")
+        check(others <= K6_TOL["float32"] * float(xp[[0, 1, 3]].abs().max()),
+              f"K6 zero pivot [{plan.route}]: the other systems changed")
     return lane_args, err
 
 
@@ -2502,12 +2616,13 @@ def rank_dir(name):
     return tempfile.mkdtemp(prefix=f"{name}-", dir=root)
 
 
-def phase_horizon_paths(device, out_dir):
+def phase_horizon_paths(device, out_dir, k6_route):
     """Two ranks sharing the card, spawned once: the lane-change headline
     (T=10, B=256, float32) through solve_batch_horizon_sharded on a dp=1 x
-    horizon=2 mesh; the gradient of Σx² through horizon_sharded_solve_fn at
-    T=16 (two lanes, float64); solve_batch_sharded of 16 lane-change lanes.
-    Each is held against the same solve on one card in this process."""
+    horizon=2 mesh, every K6 launch of a rank on ``k6_route`` (its plan's);
+    the gradient of Σx² through horizon_sharded_solve_fn at T=16 (two lanes,
+    float64); solve_batch_sharded of 16 lane-change lanes. Each is held
+    against the same solve on one card in this process."""
     import torch
 
     from mcp_tpu_torch import SOLVED, SolverOptions, auto_tightening_rate, solve_batch
@@ -2559,6 +2674,9 @@ def phase_horizon_paths(device, out_dir):
                  launches_per_rank=launches)
     log("  horizon batch (dp=1 x horizon=2, tridiag_pallas): " + json.dumps(stats))
     check(all(l["multi"] > 0 for l in launches), "horizon batch: K6 not launched in a rank")
+    check(all(l["multi_routes"][k6_route] == l["multi"] for l in launches),
+          f"horizon batch: a K6 launch off its plan's route {k6_route!r}: "
+          f"{[l['multi_routes'] for l in launches]}")
     check(all(l["linesearch"] > 0 for l in launches), "horizon batch: K2 not launched")
     check(all(l["thomas"] == l["babe"] == l["cr"] == 0 for l in launches),
           "horizon batch: K1, K7a or K3 launched")
@@ -2639,7 +2757,8 @@ def phase_long_horizon(device, out_dir):
         f"{rel:.3e} (tol {T64_X_REL:g}); tridiag_pallas_cr (K3 qr) on one card: "
         f"{int(cr.status)} in {int(cr.outer_iters)}, max|dx|={dx_cr:.3e} of max|x| "
         f"{float(cr.x.abs().max()):.1f} (tol {T64_CR_REL:g} of max|x|); K6 launches per rank "
-        f"{[r['t64']['launches']['multi'] for r in ranks]}")
+        f"{[r['t64']['launches']['multi'] for r in ranks]}, by route "
+        f"{[r['t64']['launches']['multi_routes'] for r in ranks]}")
     for r in ranks[1:]:
         check(np.array_equal(r["t64"]["x"], got["x"]), "T=64: ranks differ")
     check(int(got["status"]) == SOLVED, "T=64: not SOLVED")
@@ -2819,27 +2938,49 @@ def sep_plan_of(n, dtype, cluster):
 def phase_new_timing(k6, k8a, k8b):
     """K6, K8a and K8b at their paths' shapes beside their bounds, their
     plain versions and one batched torch.linalg.solve of the same function
-    (never called by the port)."""
+    (never called by the port); K6 on its plan's route against its block
+    route in turns, in float32 and float64, beside phase 10's device times
+    per launch."""
     import torch
 
     from mcp_tpu_torch.kernels import linear_solve as L
-    from mcp_tpu_torch.kernels.thomas_multi import thomas_solve_multi, thomas_solve_multi_plain
+    from mcp_tpu_torch.kernels.thomas_multi import (
+        multi_plan,
+        thomas_solve_multi,
+        thomas_solve_multi_plain,
+    )
 
     kernels = []
-    args, err, launches = k6
+    args, err, launches, (k6_dev, k6_old_dev) = k6
     Bn, T, b, k = args[3].shape
     A, _ = dense_block_system(*args[:3], args[3][..., 0])
     R = args[3].reshape(Bn, T * b, k).contiguous()
     nbytes, flops = multi_counts(Bn, T, b, k, args[1].stride(0) == 0)
     b_ms, b_by = bound(nbytes, flops)
+    # The plan's route against the block route forced by the plan, in
+    # turns, in float32 and on the same bands in float64.
+    plan, old = multi_plan(b, k, args[0].dtype), multi_plan(b, k, args[0].dtype, route="block")
+    k6_ms, k6_old = ab_ms(lambda: thomas_solve_multi(*args, plan=plan),
+                          lambda: thomas_solve_multi(*args, plan=old), 50)
+    args64 = tuple(a.double() for a in args)
+    group64, block64 = (multi_plan(b, k, torch.float64, route=r) for r in ("group", "block"))
+    new64, old64 = ab_ms(lambda: thomas_solve_multi(*args64, plan=group64),
+                         lambda: thomas_solve_multi(*args64, plan=block64), 20)
+    f64_routes = {"plan_route": multi_plan(b, k, torch.float64).route, "group_ms": new64,
+                  "block_ms": old64}
+    log(f"  K6 ({Bn},{T},{b},{k}): float32 route {plan.route} {k6_ms:.4f} ms, block route "
+        f"{k6_old:.4f} ms; float64 group route {new64:.4f} ms, block route {old64:.4f} ms "
+        f"(the plan takes {f64_routes['plan_route']}); in turns")
     kernels.append({
         "name": "thomas_solve_multi", "route": "cuda",
         "source": "mcp_tpu_torch/kernels/csrc/thomas_multi.cu",
         "replaces": "mcp_tpu/kernels/thomas_pallas.py:572", "launches": launches,
-        "max_abs_err": err, "ms": cuda_ms(lambda: thomas_solve_multi(*args), 50),
+        "max_abs_err": err, "ms": k6_ms,
         "plain_ms": cuda_ms(lambda: thomas_solve_multi_plain(*args), 3),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.linalg.solve(A, R), 10)})
+        "library_ms": cuda_ms(lambda: torch.linalg.solve(A, R), 10),
+        "plan": plan_fields(plan), "old_route_ms": k6_old, "float64_routes": f64_routes,
+        "device_ms": k6_dev, "old_route_device_ms": k6_old_dev})
     (A, b), err, launches = k8a
     nbytes, flops = sep_counts(A.shape[0], A.shape[1])
     b_ms, b_by = bound(nbytes, flops)
@@ -2944,8 +3085,8 @@ def main() -> int:
     phase("9: QP reference check")
     phase_qp_reference(qp_options, qp_stack, qp_res)
     phase("10: kernel timing")
-    kernels = phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs,
-                           {"gj_solve": gj_launches, **tier_launches})
+    kernels, k6_device = phase_timing(real_bands, k1_err, k2_err, launches, device, schur,
+                                      dense_errs, {"gj_solve": gj_launches, **tier_launches})
     phase("11: profile of one main-path batch")
     main_profile = phase_profile(mcp, options, stack[0])
     device_time("linesearch_update", kernels, main_profile, K2_KERNEL)
@@ -3001,7 +3142,11 @@ def main() -> int:
     k6_args, k6_err = phase_k6(real_bands, n4, device)
     phase(f"31: horizon-sharded lane change on 2 ranks (dp=1 x horizon=2, B={HZ_B}), the "
           "SPIKE gradient and batch sharding")
-    k6_launches = phase_horizon_paths(device, rank_dir("horizon2"))
+    from mcp_tpu_torch.kernels.thomas_multi import multi_plan
+
+    _, _, k6_b, k6_k = k6_args[3].shape
+    k6_launches = phase_horizon_paths(device, rank_dir("horizon2"),
+                                      multi_plan(k6_b, k6_k, torch.float32).route)
     phase("32: T=64 lane change, one instance, on 4 ranks (float64)")
     phase_long_horizon(device, rank_dir("horizon4"))
     phase("33: one-instance solves on schur_pallas (K8a)")
@@ -3009,7 +3154,7 @@ def main() -> int:
     phase("34: K8b (compact WY) beside K4b on the QP Schur systems")
     k8b_launches, k8b_err = phase_wy(schur)
     phase("35: K6, K8a, K8b timing")
-    kernels += phase_new_timing((k6_args, k6_err, k6_launches),
+    kernels += phase_new_timing((k6_args, k6_err, k6_launches, k6_device),
                                 (k8a_system, k8a_err, k8a_launches),
                                 (schur, k8b_err, k8b_launches))
     log(f"total {time.perf_counter() - t_start:.1f} s")

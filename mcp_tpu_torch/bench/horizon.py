@@ -5,8 +5,8 @@ ranks end) starts ``world`` ranks with
 ``torch.multiprocessing.spawn`` (the start method a card needs), joins them
 in one process group over a file rendezvous in ``out_dir`` and runs the same
 list of tasks on every rank; each rank saves its results, numpy arrays and
-the kernel launch counts of each task's window, and ``spawn`` returns them
-in rank order. A task is a dict: ``kind`` (a key of ``TASKS``), ``name`` and
+the kernel launch counts of each task's window (K6's also per route), and
+``spawn`` returns them in rank order. A task is a dict: ``kind`` (a key of ``TASKS``), ``name`` and
 the keyword arguments of that kind. The lane-change problem is built in each
 rank (``bench/lane_change.py``); θ and warm starts come as numpy arrays.
 
@@ -41,11 +41,15 @@ WRAPPERS = {"multi": thomas_solve_multi, "thomas": thomas_solve, "babe": babe_th
 def _reset():
     for w in WRAPPERS.values():
         w.launches = dict.fromkeys(w.launches, 0) if isinstance(w.launches, dict) else 0
+        if hasattr(w, "route_launches"):
+            w.route_launches = dict.fromkeys(w.route_launches, 0)
 
 
 def _counts() -> dict:
-    return {k: sum(w.launches.values()) if isinstance(w.launches, dict) else w.launches
-            for k, w in WRAPPERS.items()}
+    """Each wrapper's launches, and K6's per route under ``multi_routes``."""
+    counts = {k: sum(w.launches.values()) if isinstance(w.launches, dict) else w.launches
+              for k, w in WRAPPERS.items()}
+    return {**counts, "multi_routes": dict(thomas_solve_multi.route_launches)}
 
 
 def _sync(device):

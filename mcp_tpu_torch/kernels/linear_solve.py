@@ -56,7 +56,14 @@ launches in ``.launches``. K4a and K5 have two routes, picked by
 (n ≤ 128: the n + 1 slots of [A | b] in registers, cyclically over an
 8 × 32 thread grid; K5 turns slot k into identity column k at step k) or
 ``"block"`` (the augmented matrix in shared memory); ``gj_solve`` and
-``gji_solve`` count launches per route in ``.route_launches``.
+``gji_solve`` count launches per route in ``.route_launches``. K4b/K4c has
+two routes as well, picked by ``qr_plan(n, dtype)``: ``"pair"`` (n + 1 ≤
+128 in float32, n ≤ 104 in float64, within the register budget: lanes 2c
+and 2c + 1 hold column c of [A | b] in registers, half its
+rows each, the owner pair's reflector broadcast through shared memory with
+one barrier a reflection; R retired to shared memory and back-substituted
+by one warp) or ``"block"`` ([A | b] in shared memory); ``gauss_solve``
+counts launches per route in ``.route_launches``.
 """
 
 from __future__ import annotations
@@ -286,18 +293,6 @@ def _check_fits(name: str, n: int, cols: int, dtype, need=None):
         )
 
 
-def _launch(lib: str, symbol: str, wrapper, A: Tensor, ptrs: list[int]):
-    B, n, _ = A.shape
-    with torch.cuda.device(A.device):
-        err = _entry(lib, symbol)(
-            0 if A.dtype == torch.float32 else 1, *ptrs, B, n,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
-    wrapper.launches += 1
-
-
 #: The tile route of K4a/K5 (``csrc/gauss_jordan.cu``): thread (ty, tx) of
 #: a TY × TX = 8 × 32 grid holds rows ty + 8 r, r < R, and slots tx + 32 c,
 #: c < C, of the n + 1 slots of [A | b], with R an even number of rows up to
@@ -394,25 +389,79 @@ gji_solve.launches = 0
 gji_solve.route_launches = dict.fromkeys(GJ_ROUTES, 0)
 
 
-def gauss_solve(A: Tensor, b: Tensor) -> Tensor:
+#: The pair route of K4b/K4c (``csrc/qr_dense.cu``): lanes 2c and 2c + 1 of
+#: a 256-thread block hold column c ≤ n of [A | b] (so n + 1 ≤ ``PAIR_COLS``),
+#: each with H rows in registers, H the smallest row template with 2H ≥ n;
+#: its register budget is the H values of one half-column, in 32-bit
+#: registers. These are the kernel's own (``kPairCols``, ``dispatch``'s
+#: cases, ``kPairRegs``).
+PAIR_COLS = 128
+PAIR_ROWS = (8, 16, 24, 32, 40, 48, 52, 64)
+PAIR_REGS = 104
+QR_ROUTES = ("pair", "block")
+_QR_ROUTE_CODES = {"block": 0, "pair": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class QRPlan:
+    """K4b/K4c's launch for one (n, dtype): ``route`` "pair" or "block"
+    (256 threads and one system per block either way), and on the pair
+    route the rows per thread ``rows`` (H; 0 on the block route)."""
+
+    route: str
+    rows: int
+
+
+def qr_plan(n: int, dtype, route: str | None = None) -> QRPlan:
+    """K4b/K4c's plan at order n in ``dtype``: the pair route for n + 1 ≤
+    ``PAIR_COLS`` where the half-column is within ``PAIR_REGS``, else the
+    block route. ``route`` forces one (the A/B comparison of
+    ``chip_smoke.py``); raises ``ValueError`` where the route does not take
+    the shape, or where the block route's matrix does not fit a block's
+    shared memory. (The pair route's shared memory, R and two slots, fits
+    a block at every n it takes.)"""
+    if route not in (None, *QR_ROUTES):
+        raise ValueError(f"qr_plan: route must be one of {QR_ROUTES}, got {route!r}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if route != "block":
+        rows = next((r for r in PAIR_ROWS if n <= 2 * r), None)
+        if (rows is not None and 1 <= n and n + 1 <= PAIR_COLS
+                and rows * (itemsize // 4) <= PAIR_REGS):
+            return QRPlan("pair", rows)
+        if route == "pair":
+            raise ValueError(f"qr_plan: the pair route does not take n={n} in {dtype}")
+    _check_fits("gauss_solve", n, n + 1, dtype)
+    return QRPlan("block", 0)
+
+
+def gauss_solve(A: Tensor, b: Tensor, *, plan: QRPlan | None = None) -> Tensor:
     """Householder-QR solve without pivoting, A (B, n, n), b (B, n) →
     x (B, n): K4b/K4c, or K8a (``pallas_gauss_solve``) for a batch of one
-    system (see the module docstring)."""
+    system (see the module docstring); ``plan`` (default ``qr_plan``'s) is
+    for A/B comparisons of K4b/K4c's routes."""
     _check("gauss_solve", A, b)
     if A.shape[0] == 1:
         return pallas_gauss_solve(A, b)
     if A.device.type == "cpu":
         return qr_solve_plain(A, b)
     n = A.shape[-1]
-    _check_fits("gauss_solve", n, n + 1, A.dtype)
     x = torch.empty_like(b)
     if A.shape[0] and n:
-        _launch("qr_dense", "mcp_qr_solve", gauss_solve, A,
-                [A.data_ptr(), b.data_ptr(), x.data_ptr()])
+        plan = plan or qr_plan(n, A.dtype)
+        with torch.cuda.device(A.device):
+            err = _entry("qr_dense", "mcp_qr_solve")(
+                0 if A.dtype == torch.float32 else 1, A.data_ptr(), b.data_ptr(),
+                x.data_ptr(), A.shape[0], n, _QR_ROUTE_CODES[plan.route], plan.rows,
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"mcp_qr_solve launch failed: CUDA error {err}")
+        gauss_solve.launches += 1
+        gauss_solve.route_launches[plan.route] += 1
     return x
 
 
 gauss_solve.launches = 0
+gauss_solve.route_launches = dict.fromkeys(QR_ROUTES, 0)
 
 
 def pallas_gauss_solve(A: Tensor, b: Tensor) -> Tensor:
@@ -482,7 +531,7 @@ def _entry(lib: str, symbol: str):
                            vp]
         else:
             nptr = 4 if lib == "gauss_jordan" else 3
-            extra = {"wy_qr": [ci], "gauss_jordan": [ci, ci]}.get(lib, [])
+            extra = {"wy_qr": [ci], "gauss_jordan": [ci, ci], "qr_dense": [ci, ci]}.get(lib, [])
             fn.argtypes = [ci] + [vp] * nptr + [ci, ci] + extra + [vp]
         fn.restype = ctypes.c_int
     return fn

@@ -23,17 +23,24 @@ of a longer band is taken as it is. rhs is contiguous.
 A CUDA tensor launches the hand-written kernel ``csrc/thomas_multi.cu``
 (which replaces ``mcp_tpu/kernels/thomas_pallas.py::
 _thomas_kernel_packed_multi``, :572) or raises; a CPU tensor runs
-``thomas_solve_multi_plain``, the same algebra in batched PyTorch ops.
-``thomas_solve_multi.launches`` counts kernel launches.
+``thomas_solve_multi_plain``, the same algebra in batched PyTorch ops. The
+kernel has two routes, and ``multi_plan(b, k, dtype)``, a plain function of
+the shapes, picks one: ``"group"`` (one thread per column of the step's
+working matrix [D − LC | U | R − Ld], 2b + k ≤ 256 columns, with all its
+rows in registers; b ≤ 48 where its tiles fit a block) or ``"block"`` (the
+working matrix in shared memory; every other shape).
+``thomas_solve_multi.launches`` counts kernel launches and
+``thomas_solve_multi.route_launches`` launches per route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
-from .solve_aug import solve_aug_plain
+from .solve_aug import SMEM_LIMIT, solve_aug_plain
 from .thomas import check_fits
 
 Tensor = torch.Tensor
@@ -97,10 +104,75 @@ def _system_stride(a: Tensor, name: str) -> int:
     return a.stride(0) if a.shape[0] > 1 else 0
 
 
+#: The group route (``csrc/thomas_multi.cu``): its row templates (b ≤ BM
+#: rows per column, BM the smallest that holds b; one BM-long column per
+#: thread, 96 registers of doubles at BM = 48) and its widest group (one
+#: thread per column of [D − LC | U | R − Ld]: 128 threads where 2b + k ≤
+#: 128, else 256). These are the kernel's own (``dispatch``'s cases,
+#: ``kMaxGroup``); the C entry derives the shared memory of either route
+#: itself.
+GROUP_ROWS = (8, 16, 24, 32, 40, 48)
+GROUP_MAX_THREADS = 256
+ROUTES = ("group", "block")
+_ROUTE_CODES = {"block": 0, "group": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiPlan:
+    """K6's launch for one (b, k, dtype): ``route`` "group" (one thread per
+    column of the working matrix) or "block" (256 threads per system), and
+    on the group route the row template ``rows`` (BM; 0 on the block
+    route)."""
+
+    route: str
+    rows: int
+
+
+def group_smem_bytes(b: int, k: int, rows: int, itemsize: int) -> int:
+    """Shared memory of the group route (``mg_elems`` of
+    ``csrc/thomas_multi.cu``), each region rounded up to 4 elements: two
+    staging buffers, each [D | U | R] (2b + k columns at the odd stride
+    BM + 1) and L^T or R^T (b rows of BM); [C | d] (b + k columns at stride
+    BM + 1); two slots of BM + 4 values; 1/R[k][k] (BM)."""
+    r4 = lambda v: -(-v // 4) * 4
+    stage = r4((2 * b + k) * (rows + 1)) + r4(b * rows)
+    return itemsize * (2 * stage + r4((b + k) * (rows + 1)) + 2 * r4(rows + 4) + r4(rows))
+
+
+def _group_rows(b: int, k: int, itemsize: int):
+    """The group route's row template at (b, k, itemsize), or None where it
+    does not take the shape."""
+    rows = next((r for r in GROUP_ROWS if b <= r), None)
+    if (rows is None or k < 1 or 2 * b + k > GROUP_MAX_THREADS
+            or group_smem_bytes(b, k, rows, itemsize) > SMEM_LIMIT):
+        return None
+    return rows
+
+
+def multi_plan(b: int, k: int, dtype, route: str | None = None) -> MultiPlan:
+    """K6's plan for blocks of b with k right-hand sides in ``dtype``: the
+    group route where it takes the shape, else the block route. ``route``
+    forces one (the A/B comparison of ``chip_smoke.py``); raises
+    ``ValueError`` where the route does not take the shape, and where the
+    block route's working set does not fit one block's shared memory."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"multi_plan: route must be one of {ROUTES}, got {route!r}")
+    if route != "block":
+        rows = _group_rows(b, k, torch.empty((), dtype=dtype).element_size())
+        if rows is not None:
+            return MultiPlan("group", rows)
+        if route == "group":
+            raise ValueError(f"multi_plan: the group route does not take b={b}, k={k} "
+                             f"in {dtype}")
+    check_fits(b, "qr", dtype, name="thomas_solve_multi", k=k)
+    return MultiPlan("block", 0)
+
+
 def thomas_solve_multi(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, *,
-                       fact: str = "qr") -> Tensor:
+                       fact: str = "qr", plan: MultiPlan | None = None) -> Tensor:
     """Batched block-tridiagonal solve with k right-hand sides (see the
-    module docstring)."""
+    module docstring); ``plan`` (default ``multi_plan``'s) is for A/B
+    comparisons of the routes."""
     _check(diag, lower, upper, rhs)
     strides = [_system_stride(a, n) for a, n in ((diag, "diag"), (lower, "lower"),
                                                   (upper, "upper"))]
@@ -113,7 +185,8 @@ def thomas_solve_multi(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, 
         raise ValueError(f"thomas_solve_multi runs on cuda or cpu, not {diag.device}")
     B, T, b, _ = diag.shape
     k = rhs.shape[3]
-    check_fits(b, fact, diag.dtype, name="thomas_solve_multi", k=k)
+    if plan is None:
+        plan = multi_plan(b, k, diag.dtype)
     x = torch.empty_like(rhs)
     if B == 0 or k == 0:
         return x
@@ -123,15 +196,17 @@ def thomas_solve_multi(diag: Tensor, lower: Tensor, upper: Tensor, rhs: Tensor, 
             0 if diag.dtype == torch.float32 else 1,
             diag.data_ptr(), lower.data_ptr(), upper.data_ptr(), rhs.data_ptr(),
             cd.data_ptr(), x.data_ptr(), B, T, b, k, *strides,
-            torch.cuda.current_stream().cuda_stream,
+            _ROUTE_CODES[plan.route], plan.rows, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"thomas_multi kernel launch failed: CUDA error {err}")
     thomas_solve_multi.launches += 1
+    thomas_solve_multi.route_launches[plan.route] += 1
     return x
 
 
 thomas_solve_multi.launches = 0
+thomas_solve_multi.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _entry():
@@ -140,6 +215,6 @@ def _entry():
     fn = load("thomas_multi").mcp_thomas_solve_multi
     if fn.argtypes is None:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ll, ll, ll, vp]
+        fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ll, ll, ll, ci, ci, vp]
         fn.restype = ctypes.c_int
     return fn
