@@ -47,7 +47,12 @@ working matrix), float32 and float64, against the old block route in
 turns, and K7a (each fact, float32 and float64) on its
 plan's route (one 128-thread group per sweep direction, a column of the
 working matrix per thread in registers) against its block route in turns,
-reads the device time per launch of K2 and K7a from the profiles, times
+holds K2 on its plan's route (a thread group per lane at B=256, a thread
+block cluster per lane at B=8) and on its block route to its plain version
+bit for bit, asserts the route of every K2 launch on the paths, reads the
+device time per launch of K2 (each route against the block route, at the
+three shapes the paths give it), K8b (its pair route against its block
+route and K4b) and K7a from the profiles, times
 K3 and K8a (thread-block-cluster kernels) with their launch plans and
 against other cluster sizes in turns, compares K3's
 refined facts gjpr, gjbpr and gjbprl in turns on the N=10 bands, profiles
@@ -225,8 +230,14 @@ TRAIN_B, TRAIN_STEPS, TRAIN_MIN_SUCCESS, TRAIN_STEP_MIN_SUCCESS = 8, 3, 0.9, 0.5
 # the card (PERF.md §6).
 GRAD_B, GRAD_SEED, GRAD_SOLVE_TOL, FD_STEP = 2, 1, 1e-9, 2e-4
 # The kernels whose device time per launch the profiles read (their names as
-# the profiler records them): K2, and K7a's group route.
-K2_KERNEL = r"\bls_kernel<"
+# the profiler records them): K2 (every route), and K7a's group route.
+K2_KERNEL = r"\bls_(group_)?kernel<"
+# K2 by route, and the shapes it runs at on the paths: the lane change
+# (phase 4, path A, the horizon ranks) and the N=4 and N=10 flagships and
+# the training step (B=8; phase 13 holds these to the games' dimensions).
+K2_ROUTE_KERNELS = {"block": r"\bls_kernel<", "cluster": r"\bls_group_kernel<"}
+K2_SHAPES = ((256, 200, 250), (8, 1200, 1470), (8, 3000, 3630))
+K2_KINDS = ("feasible", "partly_feasible", "infeasible", "nan_direction", "edges")
 K7A_GROUP_KERNEL = r"\bbabe_group_kernel<"
 FD_TOL, F32_GRAD_TOL = 3e-8, 1e-4
 
@@ -477,50 +488,125 @@ def ls_case(kind, dtype, device, n=200, m=250, seed=0, batch=B):
         dx[0, 0] = np.nan
         ds[5, 1] = np.inf
         dy[10 % batch, 2] = np.nan
+    elif kind == "edges":
+        # The cases of K2's candidate scan (csrc/linesearch.cu, scan_of) on
+        # finite directions, one lane each: s < 0 with ds > 0 (only the
+        # largest candidates), ds = +0 and -0, ds = 0 with s < 0 (none, lane
+        # 2), subnormal steps, a NaN slack (none, lane 4), a huge step (none,
+        # lane 5), a subnormal s < 0 with ds > 0, y < 0 with dy > 0.
+        tiny = 1e-40 if dtype == torch.float32 else 1e-310
+        ds[[0, 6]], dy[7] = np.abs(ds[[0, 6]]), np.abs(dy[7])
+        s[0, :5], ds[0, :5] = -0.5, 1.0
+        ds[1, :3], ds[1, 3:6], dy[1, :4] = 0.0, -0.0, -0.0
+        s[2, 0], ds[2, 0] = -1.0, 0.0
+        ds[3] = tiny * np.sign(ds[3])
+        s[4, 0] = np.nan
+        ds[5, :4] = -1e30
+        s[6, :3], ds[6, :3] = -tiny, tiny
+        y[7, :2], dy[7, :2] = -0.3, 2.0
     return tuple(
         torch.tensor(a, dtype=dtype, device=device)
         for a in (x, dx, s, ds, y, dy, rg, rh, rc)
     )
 
 
-def phase_k2(device, shapes=((B, 200, 250),)):
-    """K2 against its plain version on four kinds of step, in float32 and
-    float64, at each (batch, n, m) of ``shapes``; returns the max absolute
-    float32 difference."""
+def ls_bits(t):
+    """A float tensor's bit patterns (equal bits: the same value, sign of
+    zero and NaN payload)."""
     import torch
 
-    from mcp_tpu_torch.kernels.linesearch import linesearch_update, linesearch_update_plain
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def host_ms(fn, reps):
+    """Mean host milliseconds per call of ``fn`` over ``reps`` calls back to
+    back, not waiting on the device (which K2 keeps ahead of)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+
+
+def ls_route_check(name, routes, launches, Bn, n, m, dtype):
+    """Every K2 launch of a path on the route its plan names at (Bn, n, m)."""
+    from mcp_tpu_torch.kernels.linesearch import ls_plan
+
+    route = ls_plan(Bn, n, m, dtype).route
+    check(launches > 0 and routes[route] == launches,
+          f"{name}: K2 launched off its plan's route {route!r}: {routes} of {launches}")
+    return route
+
+
+def phase_k2(device, shapes=((B, 200, 250),)):
+    """K2 against its plain version on four kinds of step and the candidate
+    scan's edge cases, in float32 and float64, at each (batch, n, m) of
+    ``shapes``, on the plan's route (asserted) and on the block route forced
+    by the plan where the plan takes another: the failure flags, kkt and
+    x', s', y' bit for bit (and the iterates within K2_TOL). Then a grid
+    that is not non-increasing, which the plan sends to the block route
+    (asserted), bit for bit. Returns the max absolute float32 difference."""
+    import torch
+
+    from mcp_tpu_torch.kernels.linesearch import (
+        linesearch_update,
+        linesearch_update_plain,
+        ls_plan,
+    )
     from mcp_tpu_torch.solver import SolverOptions, linesearch_candidates
 
     o = SolverOptions()
     cands = linesearch_candidates(o.decay, o.min_stepsize)
     worst = 0.0
+
+    def run(args, tag, plan, route, grid):
+        before = dict(linesearch_update.route_launches)
+        got = linesearch_update(*args, tau=o.tau, candidates=grid, plan=plan)
+        torch.cuda.synchronize()
+        took = [r for r, k in linesearch_update.route_launches.items() if k != before[r]]
+        want = linesearch_update_plain(*args, tau=o.tau, candidates=grid)
+        errs = [float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+                for g, w in zip(got[:3], want[:3])]
+        same = [bool(torch.equal(ls_bits(g), ls_bits(w))) for g, w in zip(got[:4], want[:4])]
+        same_flags = bool(torch.equal(got[4], want[4]))
+        nfail = int(got[4].sum())
+        log(f"  K2 {tag}: failed lanes {nfail}/{args[0].shape[0]}, flags equal {same_flags}, "
+            f"bits equal x/s/y/kkt {same}, max rel err x/s/y {max(errs):.3e} "
+            f"(tol {K2_TOL:g})")
+        check(took == [route], f"K2 {tag}: launched on route {took}")
+        check(same_flags and same[3], f"K2 {tag}: flags or kkt differ")
+        check(max(errs) <= K2_TOL, f"K2 {tag}: iterates differ")
+        check(all(same), f"K2 {tag}: iterates not bit-equal to plain")
+        return got, want, nfail
+
     for batch, n, m in shapes:
         for dtype in (torch.float32, torch.float64):
-            for kind in ("feasible", "partly_feasible", "infeasible", "nan_direction"):
-                args = ls_case(kind, dtype, device, n=n, m=m, batch=batch)
-                got = linesearch_update(*args, tau=o.tau, candidates=cands)
-                torch.cuda.synchronize()
-                want = linesearch_update_plain(*args, tau=o.tau, candidates=cands)
-                errs = [
-                    float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
-                    for g, w in zip(got[:3], want[:3])
-                ]
-                same_flags = bool(torch.equal(got[4], want[4]))
-                same_kkt = bool(torch.equal(got[3], want[3]))
-                nfail = int(got[4].sum())
-                tag = f"{kind} ({batch},{n},{m}) {str(dtype)[6:]}"
-                log(f"  K2 {tag}: failed lanes {nfail}/{batch}, flags equal "
-                    f"{same_flags}, kkt equal {same_kkt}, max rel err x/s/y "
-                    f"{max(errs):.3e} (tol {K2_TOL:g})")
-                check(same_flags and same_kkt, f"K2 {tag}: flags or kkt differ")
-                check(max(errs) <= K2_TOL, f"K2 {tag}: iterates differ")
-                expect = {"feasible": nfail == 0, "partly_feasible": True,
-                          "infeasible": 0 < nfail < batch, "nan_direction": nfail == 3}
-                check(expect[kind], f"K2 {tag}: unexpected failure count {nfail}")
-                if dtype == torch.float32:
-                    worst = max(worst, max(float((g - w).abs().max()) for g, w in
-                                           zip(got[:3], want[:3])))
+            plan = ls_plan(batch, n, m, dtype)
+            plans = [None] + ([ls_plan(batch, n, m, dtype, route="block")]
+                              if plan.route != "block" else [])
+            for forced in plans:
+                route = (forced or plan).route
+                for kind in K2_KINDS:
+                    args = ls_case(kind, dtype, device, n=n, m=m, batch=batch)
+                    tag = f"{kind} ({batch},{n},{m}) {str(dtype)[6:]} [{route}]"
+                    got, want, nfail = run(args, tag, forced, route, cands)
+                    expect = {"feasible": nfail == 0, "partly_feasible": True,
+                              "infeasible": 0 < nfail < batch, "nan_direction": nfail == 3,
+                              "edges": nfail == 3}
+                    check(expect[kind], f"K2 {tag}: unexpected failure count {nfail}")
+                    if dtype == torch.float32:
+                        worst = max(worst, max(float((g - w).abs().max()) for g, w in
+                                               zip(got[:3], want[:3])))
+        # The grid in increasing order: the cluster route's scan does not
+        # take it, so the wrapper's plan is the block route.
+        args = ls_case("partly_feasible", torch.float32, device, n=n, m=m, batch=batch)
+        run(args, f"increasing grid ({batch},{n},{m}) float32 [block]", None, "block",
+            tuple(reversed(cands)))
     return worst
 
 
@@ -577,6 +663,7 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026, tier="tridi
     wall_s = time.perf_counter() - t1
     launches = read_counts()
     routes = dict(thomas_solve.route_launches)
+    ls_routes = read_routes()["linesearch"]
     device_s = start.elapsed_time(end) / 1e3 if device == "cuda" else float("nan")
 
     tk = true_kkt_errors(mcp, res, stack)
@@ -594,6 +681,7 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026, tier="tridi
         window_s_host=wall_s,
         launches=launches,
         thomas_routes=routes,
+        linesearch_routes=ls_routes,
     )
     log(f"  {name} ({tier}): " + json.dumps(stats))
     check(tuple(res.x.shape) == (k_batches, batch, mcp.unconstrained_dimension),
@@ -610,6 +698,8 @@ def phase_main_path(device, batch=B, k_batches=K_BATCHES, seed=2026, tier="tridi
     route = thomas_plan(mcp.time_structure.block_size, fact, torch.float32).route
     check(routes[route] == launches["thomas"][fact],
           f"{name}: K1 launched off its plan's route {route!r}: {routes}")
+    ls_route_check(name, ls_routes, launches["linesearch"], batch,
+                   mcp.unconstrained_dimension, mcp.constrained_dimension, torch.float32)
     return mcp, options, stack, res, launches
 
 
@@ -704,6 +794,7 @@ def dense_check(name, fn, plain, A, b, plan=None):
         gj_plan,
         pallas_gauss_solve,
         qr_plan,
+        wy_plan,
         wy_solve,
     )
 
@@ -711,9 +802,10 @@ def dense_check(name, fn, plain, A, b, plan=None):
     got = fn(A, b) if plan is None else fn(A, b, plan=plan)
     torch.cuda.synchronize()
     if routes:
-        # K4a/K5, K4b/K4c: the launch took the route of its plan.
+        # K4a/K5, K4b/K4c, K8b: the launch took the route of its plan.
         n = A.shape[-1]
         want_route = (plan or (qr_plan(n, A.dtype) if fn is gauss_solve
+                               else wy_plan(n, 8, A.dtype) if fn is wy_solve
                                else gj_plan(n, isinstance(got, tuple), A.dtype))).route
         took = [r for r, k in fn.route_launches.items() if k != routes[r]]
         check(took == [want_route], f"{name}: launched on route {took}, not {want_route!r}")
@@ -1194,13 +1286,98 @@ def bound(nbytes, flops):
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def ls_counts(Bn, n, m, K, itemsize=4):
+    """(bytes, flops) of one K2 call: x, dx, rg, s, ds, y, dy, rh, rc read
+    once, x', s', y', kkt and the flag written once; per m entry K products
+    and compares for each of the two masks, per entry the update's multiply
+    and add and the norm's compare."""
+    nbytes = Bn * ((3 * n + 6 * m) + (n + 2 * m) + 1) * itemsize + Bn
+    return nbytes, Bn * (2 * K * 2 * m + 2 * (n + 2 * m) + (n + 2 * m))
+
+
+def k2_timing(device):
+    """K2 at the paths' shapes (K2_SHAPES): the plan's route against the
+    block route forced by the plan where the plan takes another, the card's
+    own time per launch from one profile of 20 calls each, beside
+    back-to-back wrapper calls in turns (CUDA events; they measure the host
+    issuing the calls). Returns (the readings by shape, the main path's
+    shape's entry of the kernels line)."""
+    import torch
+
+    from mcp_tpu_torch.kernels.linesearch import (
+        linesearch_update,
+        linesearch_update_plain,
+        ls_plan,
+    )
+    from mcp_tpu_torch.solver import SolverOptions, linesearch_candidates
+
+    o = SolverOptions()
+    cands = linesearch_candidates(o.decay, o.min_stepsize)
+    k2_shapes = {}
+    for Bk, nk, mk in K2_SHAPES:
+        args = ls_case("partly_feasible", torch.float32, device, n=nk, m=mk, batch=Bk)
+        plan = ls_plan(Bk, nk, mk, torch.float32)
+        plans = [plan] + ([ls_plan(Bk, nk, mk, torch.float32, route="block")]
+                          if plan.route != "block" else [])
+        calls = [(lambda p=p: linesearch_update(*args, tau=o.tau, candidates=cands, plan=p))
+                 for p in plans]
+        dev = route_device_ms(calls, [K2_ROUTE_KERNELS[p.route] for p in plans])
+        wrap = ab_ms(*calls, 200) if len(calls) == 2 else (cuda_ms(calls[0], 200),)
+        k2_b, k2_by = bound(*ls_counts(Bk, nk, mk, len(cands)))
+        entry = {"plan": plan_fields(plan), "device_ms": dev[0], "wrapper_ms": wrap[0],
+                 "bound_ms": k2_b, "bound_by": k2_by}
+        if len(plans) == 2:
+            entry.update(block_device_ms=dev[1], block_wrapper_ms=wrap[1])
+        k2_shapes[f"({Bk},{nk},{mk})"] = entry
+        log(f"  K2 ({Bk},{nk},{mk}) float32: device time per launch {dev[0]:.5f} ms on route "
+            f"{plan.route} (group {plan.group}, slots {plan.slots}, cluster {plan.cluster})"
+            + (f", block route {dev[1]:.5f} ms" if len(plans) == 2 else "")
+            + f" (profiled); wrapper calls back to back {' / '.join(f'{w:.5f}' for w in wrap)}"
+            f" ms{', in turns' if len(plans) == 2 else ''}; bound {k2_b:.5f} ms by {k2_by}")
+        if (Bk, nk, mk) == K2_SHAPES[0]:
+            k2_plain = cuda_ms(lambda: linesearch_update_plain(*args, tau=o.tau,
+                                                               candidates=cands), 20)
+            k2_main = dict(plan=plan_fields(plan), ms=dev[0], wrapper_ms=wrap[0],
+                           host_ms=host_ms(calls[0], 500), plain_ms=k2_plain, bound_ms=k2_b,
+                           bound_by=k2_by)
+            log(f"  K2 wrapper, host time per call: {k2_main['host_ms']:.5f} ms")
+    return k2_shapes, k2_main
+
+
+def k8b_device_ms(schur):
+    """K8b's device time per launch at the cold-start QP Schur systems
+    (padded to 104), in float32 and float64: the plan's route, the block
+    route forced by the plan where the plan takes another, and K4b's pair
+    route, in one profile each (taken before any rank is spawned: phase 35
+    reports them)."""
+    import torch
+
+    from mcp_tpu_torch.kernels import linear_solve as L
+
+    A, b = schur
+    Bn, n, _ = A.shape
+    k8b_device = {}
+    for dt in (torch.float32, torch.float64):
+        Ad, bd, tname = A.to(dt), b.to(dt), "float" if dt == torch.float32 else "double"
+        # The plan's route (pair in float32, block in float64), the block
+        # route forced by the plan where the plan takes another, K4b's pair.
+        plan, k4b = L.wy_plan(n, 8, dt), L.qr_plan(n, dt)
+        routes = {plan.route: plan, "block": L.wy_plan(n, 8, dt, route="block")}
+        names = {"pair": rf"\bwy_pair_kernel<{tname}", "block": rf"\bwy_kernel<{tname}"}
+        calls = [(lambda p=p: L.wy_solve(Ad, bd, plan=p)) for p in routes.values()]
+        k8b_device[str(dt)[6:]] = dict(zip((*routes, "k4b_pair"), route_device_ms(
+            (*calls, lambda: L.gauss_solve(Ad, bd, plan=k4b)),
+            (*(names[r] for r in routes), rf"\bqr_pair_kernel<{tname}"))))
+        log(f"  K8b ({Bn},{n} -> 104) {str(dt)[6:]}: device time per launch "
+            f"{k8b_device[str(dt)[6:]]} ms (profiled; the plan takes {plan.route})")
+    return k8b_device
+
+
 def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs,
                  dense_launches):
     import torch
 
-    from mcp_tpu_torch.kernels.linesearch import linesearch_update, linesearch_update_plain
     from mcp_tpu_torch.kernels.thomas import thomas_plan, thomas_solve, thomas_solve_plain
-    from mcp_tpu_torch.solver import SolverOptions, linesearch_candidates
 
     diag, lower, upper, rhs = real_bands
     Bn, T, b, _ = diag.shape
@@ -1243,16 +1420,7 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
     k1_bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
     k1_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOP_PER_S else "operations"
 
-    o = SolverOptions()
-    cands = linesearch_candidates(o.decay, o.min_stepsize)
-    args = ls_case("partly_feasible", torch.float32, device)
-    k2_ms = cuda_ms(lambda: linesearch_update(*args, tau=o.tau, candidates=cands), 200)
-    k2_plain = cuda_ms(lambda: linesearch_update_plain(*args, tau=o.tau, candidates=cands), 20)
-    n, m = args[0].shape[1], args[2].shape[1]
-    k2_bytes = Bn * ((3 * n + 6 * m) + (n + 2 * m) + 1) * 4 + Bn
-    k2_ops = Bn * (2 * len(cands) * 2 * m + 2 * (n + 2 * m) + (n + 2 * m))
-    k2_bound = max(k2_bytes / HBM_BYTES_PER_S, k2_ops / FP32_FLOP_PER_S) * 1e3
-    k2_by = "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / FP32_FLOP_PER_S else "operations"
+    k2_shapes, k2_main = k2_timing(device)
     kernels = [
         {"name": "thomas_solve", "route": "cuda",
          "source": "mcp_tpu_torch/kernels/csrc/thomas.cu",
@@ -1264,9 +1432,8 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
         {"name": "linesearch_update", "route": "cuda",
          "source": "mcp_tpu_torch/kernels/csrc/linesearch.cu",
          "replaces": "mcp_tpu/kernels/linesearch_pallas.py:70",
-         "launches": launches["linesearch"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "launches": launches["linesearch"], "max_abs_err": k2_err, **k2_main,
+         "library_ms": None, "shapes": k2_shapes},
     ]
     # K4a, K4b/K4c, K5 on the cold-start QP Schur system (B=256, n=100,
     # float32); library yardstick: one batched torch.linalg.solve (LU with
@@ -1303,7 +1470,7 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
             entry["ms"], entry["old_route_ms"] = ab_ms(
                 lambda: fn(A, b, plan=plan), lambda: fn(A, b, plan=old), 50)
             entry["device_ms"], entry["old_route_device_ms"] = route_device_ms(
-                lambda: fn(A, b, plan=plan), lambda: fn(A, b, plan=old),
+                (lambda: fn(A, b, plan=plan), lambda: fn(A, b, plan=old)),
                 (r"\bqr_pair_kernel<", r"\bqr_kernel<"))
             log(f"  K4b/K4c (gauss_solve) ({Bn},{n}) float32: device time per launch "
                 f"{entry['device_ms']:.4f} ms on route {plan.route}, block route "
@@ -1330,8 +1497,8 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "
             f"{k['bound_ms']:.5f} ms by {k['bound_by']}, library {k['library_ms']})"
-            + (f"; route {k['plan']['route']}, block route {k['old_route_ms']:.4f} ms"
-               if "plan" in k else ""))
+            + (f"; route {k['plan']['route']}" if "plan" in k else "")
+            + (f", block route {k['old_route_ms']:.4f} ms" if "old_route_ms" in k else ""))
     # K6's device time per launch on both routes, at the lane-change SPIKE
     # operands of phase 30 (slab 0 of 2), profiled here: a profile of the
     # same calls in phase 30 or 35 recorded no device activity, where one in
@@ -1341,12 +1508,13 @@ def phase_timing(real_bands, k1_err, k2_err, launches, device, schur, dense_errs
     k6_args = spike_slab(real_bands, 0, 2)
     _, _, b6, k6 = k6_args[3].shape
     group, block = (multi_plan(b6, k6, k6_args[0].dtype, route=r) for r in ("group", "block"))
-    k6_device = route_device_ms(lambda: thomas_solve_multi(*k6_args, plan=group),
-                                lambda: thomas_solve_multi(*k6_args, plan=block),
+    k6_device = route_device_ms((lambda: thomas_solve_multi(*k6_args, plan=group),
+                                 lambda: thomas_solve_multi(*k6_args, plan=block)),
                                 (r"\bmulti_group_kernel<", r"\bmulti_kernel<"))
     log(f"  K6 {tuple(k6_args[3].shape)} float32: device time per launch {k6_device[0]:.4f} ms "
         f"on the group route, block route {k6_device[1]:.4f} ms (profiled)")
-    return kernels, k6_device
+    k8b_device = k8b_device_ms(schur)
+    return kernels, k6_device, k8b_device
 
 
 # -- K3 and the masked N-player flagships ----------------------------------
@@ -1546,6 +1714,8 @@ def run_flagship(name, s, options, stack, x0, fact, kernel="cr"):
     fused = options.fused_linesearch
     if fused or (fused is None and options.linear_solver in ("tridiag_pallas", "tridiag_auto")):
         check(launches["linesearch"] > 0, f"{name}: K2 never launched")
+        ls_route_check(name, routes["linesearch"], launches["linesearch"], Bn,
+                       s.mcp.unconstrained_dimension, s.mcp.constrained_dimension, stack.dtype)
     return res, stats
 
 
@@ -1936,6 +2106,7 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
             log(f"  train step {i}: " + json.dumps(rows[-1]))
     window = time.perf_counter() - t_window
     counts = read_counts()
+    ls_routes = read_routes()["linesearch"]
     routes = read_routes()["babe"]
     launches = {
         "babe_forward": counts["babe"]["qr"] - w["launches"],
@@ -1944,6 +2115,7 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
         "babe_backward_group": w["group_launches"],
         "babe_other_facts": total(counts["babe"]) - counts["babe"]["qr"],
         "linesearch": counts["linesearch"],
+        "linesearch_routes": ls_routes,
         "thomas": total(counts["thomas"]),
         "cr_thomas_solve": counts["cr"],
     }
@@ -1964,6 +2136,8 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
           and launches["babe_backward_group"] == launches["babe_backward"],
           f"training: K7a launched off the group route {launches}")
     check(launches["linesearch"] > 0, "training: K2 never launched")
+    ls_route_check("training", ls_routes, launches["linesearch"], batch,
+                   *K2_SHAPES[1][1:], torch.float32)  # the N=4 game's (n, m)
     check(launches["thomas"] == 0 and not any(launches["cr_thomas_solve"].values())
           and launches["babe_other_facts"] == 0,
           f"training: K1, K3 or another K7a fact launched on the K7a qr route {launches}")
@@ -2142,26 +2316,35 @@ def phase_k7a_timing(bands, err, launches):
 def device_time(name, kernels, profile, pattern):
     """Add the device milliseconds per launch of kernel ``pattern`` in
     ``profile`` to the entry ``name`` of the kernels line (``device_ms``,
-    beside the CUDA-event time of back-to-back wrapper calls, ``ms``)."""
+    beside the CUDA-event time of back-to-back wrapper calls: ``ms``, or
+    ``wrapper_ms`` where ``ms`` is a device time)."""
     ms, n = device_ms_per_launch(profile, pattern)
     check(n > 0, f"profile: {name}'s kernel ({pattern}) not in the profile")
     entry = next(k for k in kernels if k["name"] == name)
     entry["device_ms"], entry["device_launches"] = ms, n
     log(f"  {name}: device time {ms:.5f} ms per launch over {n} launches in the profile "
-        f"(wrapper calls back to back, CUDA events: {entry['ms']:.5f} ms)")
+        f"(wrapper calls back to back, CUDA events: {entry.get('wrapper_ms', entry['ms']):.5f} "
+        "ms)")
 
 
-def route_device_ms(new, old, patterns, reps=20):
-    """Device milliseconds per launch of a kernel's plan route and its block
-    route (``patterns``: their kernel names), each called ``reps`` times back
-    to back under one profile: the card's own time, without the host's cost
-    of issuing the calls, which back-to-back wrapper calls of a kernel this
+def route_device_ms(calls, patterns, reps=20):
+    """Device milliseconds per launch of each of ``calls`` (a kernel's plan
+    route and its block route, or other kernels of the same function;
+    ``patterns``: their kernel names), each called ``reps`` times back to
+    back under one profile: the card's own time, without the host's cost of
+    issuing the calls, which back-to-back wrapper calls of a kernel this
     short can approach."""
 
+    import torch
+
     def run():
-        for fn in (new, old):
+        # A kernel of no interest on each side of the calls: a profile of
+        # K2's block route alone once recorded 19 of its 20 launches.
+        marker = torch.zeros(1, device="cuda")
+        for fn in calls:
             for _ in range(reps):
                 fn()
+        marker.add_(1)
 
     profile = profile_call(run, ())
     out = []
@@ -2671,13 +2854,18 @@ def phase_horizon_paths(device, out_dir, k6_route):
                  median_outer_iters=float(np.median(got["outer_iters"])),
                  single_card_success=float((one.status == SOLVED).double().mean()),
                  lanes_whose_status_differs_from_one_card=differ,
-                 launches_per_rank=launches)
+                 launches_per_rank=launches,
+                 linesearch_routes_per_rank=[r["batch"]["linesearch_routes"] for r in ranks])
     log("  horizon batch (dp=1 x horizon=2, tridiag_pallas): " + json.dumps(stats))
     check(all(l["multi"] > 0 for l in launches), "horizon batch: K6 not launched in a rank")
     check(all(l["multi_routes"][k6_route] == l["multi"] for l in launches),
           f"horizon batch: a K6 launch off its plan's route {k6_route!r}: "
           f"{[l['multi_routes'] for l in launches]}")
     check(all(l["linesearch"] > 0 for l in launches), "horizon batch: K2 not launched")
+    for r in ranks:
+        ls_route_check("horizon batch (a rank)", r["batch"]["linesearch_routes"],
+                       r["batch"]["launches"]["linesearch"], HZ_B, mcp.unconstrained_dimension,
+                       mcp.constrained_dimension, torch.float32)
     check(all(l["thomas"] == l["babe"] == l["cr"] == 0 for l in launches),
           "horizon batch: K1, K7a or K3 launched")
     check(success >= 0.99, f"horizon batch: success {success} < 0.99")
@@ -2855,8 +3043,12 @@ def phase_wy(schur):
     """K8b's path (the JAX package's scripts/profile_qp_phases.py question):
     the cold-start QP Schur systems (B=256, n=100, padded to 104) solved by
     K8b beside K4b, with K8b's count set to 0 just before and read just
-    after; then K8b against its plain version in float32 and float64.
-    Returns (K8b launches, max abs error against the plain version)."""
+    after; then K8b against its plain version and K4b in float32 and
+    float64 on the plan's route (asserted: the pair route in float32, the
+    block route in float64), in float32 on the block route forced by the
+    plan and at the first order beyond the pair route (n = 121, on the
+    block route), and a zero pivot on each route. Returns (K8b launches,
+    max abs error against the plain version)."""
     import torch
 
     from mcp_tpu_torch.kernels import linear_solve as L
@@ -2866,16 +3058,51 @@ def phase_wy(schur):
     x_wy = L.wy_solve(A, b)
     torch.cuda.synchronize()
     launches = L.wy_solve.launches
-    x_qr = L.gauss_solve(A, b)
-    torch.cuda.synchronize()
-    bwd_wy, bwd_qr = backward_error(A, b, x_wy), backward_error(A, b, x_qr)
-    rel = float((x_wy - x_qr).abs().max() / x_qr.abs().max())
-    log(f"  K8b vs K4b on the QP Schur systems {tuple(A.shape)} f32: backward error K8b "
-        f"{bwd_wy:.3e}, K4b {bwd_qr:.3e}; max|x_K8b - x_K4b|/max|x|={rel:.3e}")
-    check(bwd_wy <= QR_BWD_TOL["float32"], f"K8b: backward error {bwd_wy:.3e}")
-    err = dense_check("wy_solve QP Schur (256,100) float32", L.wy_solve, L.wy_solve_plain, A, b)
-    dense_check("wy_solve QP Schur (256,100) float64", L.wy_solve, L.wy_solve_plain,
-                A.double(), b.double())
+    err = 0.0
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt)[6:]
+        Ad, bd = A.to(dt), b.to(dt)
+        x_wy = L.wy_solve(Ad, bd)
+        x_qr = L.gauss_solve(Ad, bd)
+        torch.cuda.synchronize()
+        bwd_wy, bwd_qr = backward_error(Ad, bd, x_wy), backward_error(Ad, bd, x_qr)
+        rel = float((x_wy - x_qr).abs().max() / x_qr.abs().max())
+        log(f"  K8b vs K4b on the QP Schur systems {tuple(A.shape)} {tag}: backward error "
+            f"K8b {bwd_wy:.3e}, K4b {bwd_qr:.3e}; max|x_K8b - x_K4b|/max|x|={rel:.3e}")
+        check(bwd_wy <= QR_BWD_TOL[tag], f"K8b {tag}: backward error {bwd_wy:.3e}")
+        want = "pair" if dt == torch.float32 else "block"
+        check(L.wy_plan(QP_N, 8, dt).route == want, f"wy_solve: n={QP_N} in {tag} is not "
+              f"on the {want} route")
+        e = dense_check(f"wy_solve QP Schur (256,100) {tag}", L.wy_solve, L.wy_solve_plain,
+                        Ad, bd)
+        if dt == torch.float32:
+            err = e
+            dense_check(f"wy_solve QP Schur (256,100) {tag} [block, forced]", L.wy_solve,
+                        L.wy_solve_plain, Ad, bd, plan=L.wy_plan(QP_N, 8, dt, route="block"))
+            beyond = next(n for n in range(1, 129) if L.wy_plan(n, 8, dt).route == "block")
+            dense_check(f"wy_solve random (256,{beyond}) {tag} [block]", L.wy_solve,
+                        L.wy_solve_plain, *random_systems(B, beyond, dt, "cuda", 33))
+        # A zero pivot: system 2 has a zero first row and column; QR gives
+        # inf/NaN there, and the other systems agree with the plain version.
+        Z, zb = spd_systems(4, QP_N, dt, "cuda", 25)
+        Z[2, 0, :] = 0.0
+        Z[2, :, 0] = 0.0
+        plans = (L.wy_plan(QP_N, 8, dt), L.wy_plan(QP_N, 8, dt, route="block"))
+        for plan in dict.fromkeys(plans):
+            routes = dict(L.wy_solve.route_launches)
+            x, xp = L.wy_solve(Z, zb, plan=plan), L.wy_solve_plain(Z, zb)
+            torch.cuda.synchronize()
+            took = [r for r, k in L.wy_solve.route_launches.items() if k != routes[r]]
+            bad = (~torch.isfinite(x).all(dim=1)).tolist()
+            bad_p = (~torch.isfinite(xp).all(dim=1)).tolist()
+            others = float((x[[0, 1, 3]] - xp[[0, 1, 3]]).abs().max())
+            log(f"  wy_solve zero pivot {tag} [{plan.route}]: non-finite systems kernel={bad} "
+                f"plain={bad_p}, other systems max|kernel-plain| {others:.3e}")
+            check(took == [plan.route], f"wy_solve zero pivot: launched on route {took}")
+            check(bad == [False, False, True, False] and bad_p == bad,
+                  f"wy_solve zero pivot {tag} [{plan.route}]: expected inf/NaN in system 2 only")
+            check(others <= 1e-3 * float(xp[[0, 1, 3]].abs().max()),
+                  f"wy_solve zero pivot {tag} [{plan.route}]: the other systems changed")
     return launches, err
 
 
@@ -3012,23 +3239,43 @@ def phase_new_timing(k6, k8a, k8b):
         f"against {SINGLE_BLOCK_MS['pallas_gauss_solve library']} ms); cluster {plan.cluster}, slabs "
         f"{plan.bounds}, shared memory per CTA {plan.smem_per_cta}; by cluster size in turns "
         f"(ms): {sweep}")
-    (A, b), err, launches = k8b
+    (A, b), err, launches, k8b_device = k8b
     nbytes, flops = wy_counts(A.shape[0], -(-A.shape[1] // 8) * 8)
     b_ms, b_by = bound(nbytes, flops)
+    # The plan's route (pair) against the block route forced by the plan,
+    # and K4b's pair route, wrapper calls in turns; the device times per
+    # launch of phase 10's profile beside them.
+    n = A.shape[1]
+    plan, old = L.wy_plan(n, 8, A.dtype), L.wy_plan(n, 8, A.dtype, route="block")
+    wy_ms, wy_old = ab_ms(lambda: L.wy_solve(A, b, plan=plan),
+                          lambda: L.wy_solve(A, b, plan=old), 50)
+    k4b, _ = ab_ms(lambda: L.gauss_solve(A, b), lambda: L.wy_solve(A, b, plan=plan), 50)
+    A64, b64 = A.double(), b.double()
+    plan64 = L.wy_plan(n, 8, torch.float64)
+    k4b64, wy64 = ab_ms(lambda: L.gauss_solve(A64, b64),
+                        lambda: L.wy_solve(A64, b64, plan=plan64), 20)
     kernels.append({
         "name": "wy_solve", "route": "cuda", "source": "mcp_tpu_torch/kernels/csrc/wy_qr.cu",
         "replaces": "mcp_tpu/kernels/linear_solve.py:103", "launches": launches,
-        "max_abs_err": err, "ms": cuda_ms(lambda: L.wy_solve(A, b), 50),
+        "max_abs_err": err, "ms": wy_ms,
         "plain_ms": cuda_ms(lambda: L.wy_solve_plain(A, b), 3),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.linalg.solve(A, b[..., None]), 20)})
-    k4b = cuda_ms(lambda: L.gauss_solve(A, b), 50)
+        "library_ms": cuda_ms(lambda: torch.linalg.solve(A, b[..., None]), 20),
+        "plan": plan_fields(plan), "old_route_ms": wy_old,
+        "device_ms": k8b_device["float32"]["pair"],
+        "old_route_device_ms": k8b_device["float32"]["block"],
+        "k4b_pair_device_ms": k8b_device["float32"]["k4b_pair"], "k4b_ms": k4b,
+        "float64_routes": {"plan_route": plan64.route, "ms": wy64, "k4b_ms": k4b64,
+                           "device_ms": k8b_device["float64"]}})
     for e in kernels:
         log(f"  {e['name']}: {e['ms']:.4f} ms (plain {e['plain_ms']:.3f} ms, bound "
             f"{e['bound_ms']:.5f} ms by {e['bound_by']}, library {e['library_ms']:.4f} ms); "
             f"launches {e['launches']} in its path's window")
-    log(f"  K4b (gauss_solve) on the same QP Schur systems: {k4b:.4f} ms against K8b "
-        f"{kernels[-1]['ms']:.4f} ms")
+    log(f"  K8b ({A.shape[0]},{n} -> 104) float32: pair route {wy_ms:.4f} ms, block route "
+        f"{wy_old:.4f} ms, K4b (gauss_solve, pair route) {k4b:.4f} ms, wrapper calls in turns; "
+        f"device time per launch {k8b_device['float32']} ms (phase 10); float64 on route "
+        f"{plan64.route} {wy64:.4f} ms, K4b {k4b64:.4f} ms in turns, device "
+        f"{k8b_device['float64']} ms")
     return kernels
 
 
@@ -3085,8 +3332,9 @@ def main() -> int:
     phase("9: QP reference check")
     phase_qp_reference(qp_options, qp_stack, qp_res)
     phase("10: kernel timing")
-    kernels, k6_device = phase_timing(real_bands, k1_err, k2_err, launches, device, schur,
-                                      dense_errs, {"gj_solve": gj_launches, **tier_launches})
+    kernels, k6_device, k8b_device = phase_timing(
+        real_bands, k1_err, k2_err, launches, device, schur, dense_errs,
+        {"gj_solve": gj_launches, **tier_launches})
     phase("11: profile of one main-path batch")
     main_profile = phase_profile(mcp, options, stack[0])
     device_time("linesearch_update", kernels, main_profile, K2_KERNEL)
@@ -3095,8 +3343,10 @@ def main() -> int:
     phase("13: K3 (cyclic reduction), and K2 at the flagship shapes, vs plain")
     n4, n10 = flagship(4), flagship(10)
     k3_bands, k3_errs = phase_k3(real_bands, n4, n10, device)
-    phase_k2(device, [(FLAG_B, s.mcp.unconstrained_dimension, s.mcp.constrained_dimension)
-                      for s in (n4, n10)])
+    flag_shapes = [(FLAG_B, s.mcp.unconstrained_dimension, s.mcp.constrained_dimension)
+                   for s in (n4, n10)]
+    check(tuple(flag_shapes) == K2_SHAPES[1:], f"K2: the flagships' shapes are {flag_shapes}")
+    phase_k2(device, flag_shapes)
     phase("14: N=4 flagship path")
     n4_options, n4_stack, n4_res, n4_stats = phase_n4_path(n4)
     phase("15: N=10 flagship path")
@@ -3156,7 +3406,7 @@ def main() -> int:
     phase("35: K6, K8a, K8b timing")
     kernels += phase_new_timing((k6_args, k6_err, k6_launches, k6_device),
                                 (k8a_system, k8a_err, k8a_launches),
-                                (schur, k8b_err, k8b_launches))
+                                (schur, k8b_err, k8b_launches, k8b_device))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

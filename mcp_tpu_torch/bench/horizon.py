@@ -99,7 +99,8 @@ def task_solve(*, theta, options, horizon, height=50.0, x0=None, device):
 
 def task_batch(*, thetas, options, horizon, dp, hz, height=50.0, warm=0, device):
     """``solve_batch_horizon_sharded`` of the lane change on a (dp, hz) mesh,
-    after ``warm`` lanes solved once untimed; the window is the timed batch."""
+    after ``warm`` lanes solved once untimed; the window is the timed batch.
+    Beside the launch counts, K2's per route (``linesearch_routes``)."""
     from ..parallel.horizon import make_dp_horizon_mesh, solve_batch_horizon_sharded
 
     mesh = make_dp_horizon_mesh(dp, hz, device=device)
@@ -114,7 +115,8 @@ def task_batch(*, thetas, options, horizon, dp, hz, height=50.0, warm=0, device)
     t0 = time.perf_counter()
     res = solve_batch_horizon_sharded(mcp, th, mesh=mesh, options=opts)
     _sync(device)
-    return {**_numpy(res), "seconds": time.perf_counter() - t0, "launches": _counts()}
+    return {**_numpy(res), "seconds": time.perf_counter() - t0, "launches": _counts(),
+            "linesearch_routes": dict(linesearch_update.route_launches)}
 
 
 def task_grad(*, thetas, options, horizon, height=50.0, device):

@@ -180,8 +180,7 @@ def gh_banded(mcp, structure: TimeStructure, x: Tensor, y: Tensor, theta: Tensor
     m = mcp.constrained_dimension
     T, b, mt = structure.num_blocks, structure.block_size, structure.rows_per_block
     perm, rperm, _, _ = _indices(structure, x.device)
-    seeds = torch.as_tensor(_colored_seeds(structure, n, m), dtype=x.dtype,
-                            device=x.device)
+    seeds = const(_colored_seeds(structure, n, m), x.dtype, x.device)
 
     def stacked(w):
         g, h = mcp.gh(w[:n], w[n:], theta)

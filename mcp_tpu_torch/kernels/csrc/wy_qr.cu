@@ -23,26 +23,60 @@
 // 3.35 TB/s; its 0.45 GFLOP (the panel reflections, larft, the three
 // products of each trailing update, the back substitution;
 // chip_smoke.wy_counts) take 6.8 us at the 67 TFLOP/s float32 rate: bound
-// by operations. In practice neither binds: the panels are a serial chain,
-// each nb reflections with three block barriers and a two-barrier update.
+// by operations. In practice neither binds: the panels are a serial chain
+// of nb reflections each, and the latency of a reflection sets the time.
 //
-// Design (simple and correct first): one thread block per system; A (row
-// stride n+1), b, P, U (n x nb), T (nb x nb) and the (nb x (n+1)) product
-// T^T U^T [A | b] in shared memory. A reflection's norms are warp-shuffle
-// reductions in warp 0, u^T P and U^T u one warp per panel column; the
-// product takes one thread per column of [A | b] (U^T column in registers,
-// then T^T); the update spreads the trailing block over all threads.
+// Two routes, chosen by the wrapper's plan (linear_solve.wy_plan, a plain
+// function of the padded n, the panel and the dtype) and checked here
+// against the kernels' own limits; one block of 256 threads per system on
+// both:
+//
+// "pair" (float32, panel 8, n + 1 <= 128; K4b's pair layout of
+// csrc/qr_dense.cu; in float64 at n = 104 it ran no faster than the block
+// route, so it has no float64 instance):
+// threads 2c and 2c + 1 (a lane pair) own column c of [A | b] (c < n: A's
+// column, c = n: b), each with half its rows in registers, col[r] =
+// M[j + h H + r][c] for the pair's half h, j the first row not yet retired
+// (rows templated to H in {8, 16, 24, 32, 40, 48, 52, 64}, 2H >= n; rows
+// past n are zero padding and stay zero). The 8 columns of a panel are the
+// 16 lanes of one half-warp, which factor it warp-synchronously: per
+// reflection the owner pair forms u and beta from its registers into one of
+// two shared slots, __syncwarp, every pair of the panel reads its half of u
+// as broadcast 16-byte vectors and joins its two half dots by one
+// __shfl_xor_sync; the pairs right of the owner update and retire a row of
+// R, the owner retires R[k][k] and keeps u in its registers, the pairs left
+// of it (earlier owners, holding their u) take the dot as larft's U^T u, and
+// larft's column of T is formed from those by __shfl_sync, each pair holding
+// its row of T. The owners publish U (rows relative to the panel's first
+// row, row-major) and T to shared memory; ONE block barrier; every trailing
+// pair then applies I - U T U^T to its own column: 8 half dots with U's
+// rows, 8 shuffles, T^T from shared memory, the update, and retires the
+// panel's 8 rows of R (or Q^T b) to shared memory, shifting its rows up by
+// 8. Lookahead: the owners of the next panel update their columns first and
+// factor it while the other pairs update theirs, into the other of two U
+// and T buffers. So a system costs n/8 + 1 block barriers (14 at n = 104)
+// against the block route's ~3n + 2n/8. Then one warp back-substitutes
+// from shared memory as K4b's pair route does.
+//
+// "block" (every other shape; the A/B of the pair route): one thread block
+// per system; A (row stride n+1), b, P, U (n x nb), T (nb x nb) and the
+// (nb x (n+1)) product T^T U^T [A | b] in shared memory. A reflection's
+// norms are warp-shuffle reductions in warp 0, u^T P and U^T u one warp per
+// panel column; the product takes one thread per column of [A | b] (U^T
+// column in registers, then T^T); the update spreads the trailing block
+// over all threads; three block barriers a reflection, two an update.
 
 #include <cuda_runtime.h>
 
+#include "solve_aug_group.cuh"
+
 namespace {
+
+using solve_aug::dsqrt;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPanel = 16;
-
-__device__ __forceinline__ float dsqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double dsqrt(double v) { return sqrt(v); }
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -203,7 +237,8 @@ __global__ void __launch_bounds__(kThreads) wy_kernel(
 }
 
 template <typename T>
-int launch(const void* A, const void* b, void* x, int B, int n, int nb, cudaStream_t stream) {
+int launch_block(const void* A, const void* b, void* x, int B, int n, int nb,
+                 cudaStream_t stream) {
   if (nb < 1 || nb > kMaxPanel || n % nb != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>(n, nb);
   if (smem > 48 * 1024) {
@@ -216,14 +251,350 @@ int launch(const void* A, const void* b, void* x, int B, int n, int nb, cudaStre
   return (int)cudaGetLastError();
 }
 
+// ---- Route "pair": a lane pair per column of [A | b], in registers.
+
+// The pair route's panel (a half-warp of lane pairs) and its columns (one
+// pair of threads each).
+constexpr int kNb = 8;
+constexpr int kPairCols = kThreads / 2;
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) / 4 * 4; }
+
+// The pair route's shared memory (elements of T): two slots (a panel
+// step's u, 2H values, and beta), two buffers of U (2H rows of kNb, rows
+// relative to the panel's first row) and of T (kNb x kNb), 1 / R[k][k] (n
+// values), and R with Q^T b as its column n, column-major at the odd stride
+// n | 1 (R[k][c] at c (n | 1) + k, as K4b's pair route).
+__host__ __device__ constexpr int pair_slot_elems(int h) { return round4(2 * h + 4); }
+__host__ __device__ constexpr long long pair_elems(int h, int n) {
+  return 2LL * pair_slot_elems(h) + 2LL * 2 * h * kNb + 2 * kNb * kNb + round4(n) +
+         (long long)(n + 1) * (n | 1);
+}
+
+// The reflection of a panel step from the owner pair's column (physical row
+// 0 the pivot row): K8a's alpha = -sign(v_0) sqrt(v.v + eps), u = v with
+// u_0 = v_0 - alpha, beta = 2 / (u.u + eps) (0 when u.u <= eps), each half's
+// sums in four partial sums joined by __shfl_xor_sync; each half stores its
+// rows of u into the slot, slot[2H] = beta.
+template <typename T, int H>
+__device__ __forceinline__ void wy_form(T* slot, const T (&col)[H], int h, int lane, unsigned pm) {
+  using solve_aug_group::pack;
+  using V = typename solve_aug_warp::Vec<T>::type;
+  constexpr int nv = solve_aug_warp::Vec<T>::n;
+  const T eps = T(1e-30);
+  T s[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const T v = (i == 0 && h == 0) ? T(0) : col[i];
+    s[i & 3] += v * v;
+  }
+  const T rest = (s[0] + s[1]) + (s[2] + s[3]);  // this half's rows but the pivot
+  const T vk = __shfl_sync(pm, col[0], lane & ~1);
+  T ss = h == 0 ? rest + vk * vk : rest;
+  ss += __shfl_xor_sync(pm, ss, 1);
+  const T norm = dsqrt(ss + eps);
+  const T alpha = vk >= T(0) ? -norm : norm;
+  const T u0 = vk - alpha;
+  T uu = h == 0 ? rest + u0 * u0 : rest;
+  uu += __shfl_xor_sync(pm, uu, 1);
+  V* d = reinterpret_cast<V*>(slot + h * H);
+#pragma unroll
+  for (int q = 0; q < H / nv; ++q) {
+    T e[nv];
+#pragma unroll
+    for (int r = 0; r < nv; ++r) e[r] = col[nv * q + r];
+    if (q == 0 && h == 0) e[0] = u0;
+    d[q] = pack(e);
+  }
+  if (h == 0) slot[2 * H] = uu > eps ? T(2) / (uu + eps) : T(0);
+}
+
+// Factor the panel whose first row and column is j0, by its 8 lane pairs (a
+// half-warp; kc = c - j0 this pair's column in it), each column at physical
+// row 0 = row j0 on entry. Per step k: the update of columns k.. (the
+// owner's own giving R[k][k]), the retirement of row j0 + k of R, the
+// shift by one row; the owner then holds u_k (shifted with the others), so
+// that at later steps its dot with the step's u is larft's U^T u. The
+// owners write U and T (row kc of T by pair kc) into the buffers U and Tm.
+// The steps are a runtime loop: one copy of the step's code.
+template <typename T, int H>
+__device__ __forceinline__ void wy_factor(T (&col)[H], int kc, int h, int lane, unsigned pm,
+                                          unsigned hm, T* slot, T* U, T* Tm, T* Rs, T* rinv,
+                                          int ldr, int j0) {
+  using solve_aug_group::dot4;
+  using solve_aug_group::unpack;
+  using V = typename solve_aug_warp::Vec<T>::type;
+  constexpr int nv = solve_aug_warp::Vec<T>::n;
+  constexpr int SL = pair_slot_elems(H);
+  const int c = j0 + kc;
+  T* trow = Tm + kc * kNb;
+  if (h == 0) {
+#pragma unroll
+    for (int q = 0; q < kNb; ++q) {
+      trow[q] = T(0);
+      if (q < kc) U[q * kNb + kc] = T(0);  // U is zero above its diagonal
+    }
+  }
+#pragma unroll 1
+  for (int k = 0; k < kNb; ++k) {
+    T* u = slot + (k & 1) * SL;
+    const bool own = kc == k, live = kc > k;
+    if (own) wy_form<T, H>(u, col, h, lane, pm);
+    __syncwarp(hm);
+    const T beta = u[2 * H];
+    T w = dot4<T, H>(col, u + h * H);
+    w += __shfl_xor_sync(pm, w, 1);
+    const T bw = beta * w;
+    const V* uv = reinterpret_cast<const V*>(u + h * H);
+    T top = T(0), cross = T(0);
+#pragma unroll
+    for (int q = 0; q < H / nv; ++q) {
+      T e[nv];
+      unpack(uv[q], e);
+#pragma unroll
+      for (int r = 0; r < nv; ++r) {
+        const int i = nv * q + r;
+        const T upd = col[i] - e[r] * bw;
+        const T v = live ? upd : (own ? e[r] : col[i]);
+        // Column k of U (rows relative to j0) from the owner's registers.
+        if (own && k + h * H + i < 2 * H) U[(k + h * H + i) * kNb + k] = e[r];
+        if (i == 0) {
+          top = upd;
+          cross = v;
+        } else {
+          col[i - 1] = v;
+        }
+      }
+    }
+    // The lower half's top row moves to the bottom of the upper half.
+    const T up = __shfl_xor_sync(pm, cross, 1);
+    col[H - 1] = h == 0 ? up : T(0);
+    if (own && h == 0) rinv[j0 + k] = T(1) / top;
+    if (h == 0 && kc >= k) Rs[c * ldr + j0 + k] = top;
+    // larft: T[p][k] = -beta sum_q T[p][q] (U^T u)_q over the earlier
+    // owners q, T[k][k] = beta.
+    T acc = T(0);
+#pragma unroll
+    for (int q = 0; q < kNb - 1; ++q) {
+      const T z = __shfl_sync(hm, w, (lane & 16) + 2 * q);
+      if (q < k) acc += trow[q] * z;
+    }
+    if (h == 0) {
+      if (kc < k) trow[k] = -beta * acc;
+      if (own) trow[k] = beta;
+    }
+  }
+}
+
+// Rows of U that wy_apply loads at a time: 32 registers of U, then a
+// __syncwarp of the pair, which no load is moved across. Without it the
+// compiler issued every row's loads at once (8H values for each pass, the
+// second pass's ahead of the first: over the register budget, spilled).
+template <typename T>
+__host__ __device__ constexpr int apply_rows() {
+  return 16 / (int)sizeof(T);
+}
+
+// A trailing column (physical row 0 = row j0) takes the panel's block
+// reflector: col -= U (T^T (U^T col)); its rows j0.. j0 + 7 retire to R
+// (or Q^T b) and the rest shift up by 8.
+template <typename T, int H>
+__device__ __forceinline__ void wy_apply(T (&col)[H], int h, unsigned pm, const T* U,
+                                         const T* Tm, T* Rs, int ldr, int c, int j0) {
+  using solve_aug_group::unpack;
+  using V = typename solve_aug_warp::Vec<T>::type;
+  constexpr int nv = solve_aug_warp::Vec<T>::n;
+  constexpr int RG = apply_rows<T>();
+  const V* u = reinterpret_cast<const V*>(U + h * H * kNb);
+  T y[kNb];
+#pragma unroll
+  for (int q = 0; q < kNb; ++q) y[q] = T(0);
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+#pragma unroll
+    for (int q = 0; q < kNb / nv; ++q) {
+      T e[nv];
+      unpack(u[r * (kNb / nv) + q], e);
+#pragma unroll
+      for (int t = 0; t < nv; ++t) y[nv * q + t] += e[t] * col[r];
+    }
+    if (r % RG == RG - 1) __syncwarp(pm);
+  }
+#pragma unroll
+  for (int q = 0; q < kNb; ++q) y[q] += __shfl_xor_sync(pm, y[q], 1);
+  __syncwarp(pm);  // T's loads after the first pass's
+  // z = T^T y, in place from the last entry: z_p = sum_{q <= p} T[q][p] y_q.
+#pragma unroll
+  for (int p = kNb - 1; p >= 0; --p) {
+    T acc = T(0);
+#pragma unroll
+    for (int q = 0; q <= p; ++q) acc += Tm[q * kNb + p] * y[q];
+    y[p] = acc;
+  }
+  __syncwarp(pm);
+  T top[kNb];
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    T acc = T(0);
+#pragma unroll
+    for (int q = 0; q < kNb / nv; ++q) {
+      T e[nv];
+      unpack(u[r * (kNb / nv) + q], e);
+#pragma unroll
+      for (int t = 0; t < nv; ++t) acc += e[t] * y[nv * q + t];
+    }
+    const T v = col[r] - acc;
+    if (r < kNb)
+      top[r] = v;
+    else
+      col[r - kNb] = v;
+    if (r % RG == RG - 1) __syncwarp(pm);
+  }
+#pragma unroll
+  for (int i = 0; i < kNb; ++i) {
+    const T up = __shfl_xor_sync(pm, top[i], 1);
+    col[H - kNb + i] = h == 0 ? up : T(0);
+    if (h == 0) Rs[c * ldr + j0 + i] = top[i];
+  }
+}
+
+// Float32 up to H = 52: two blocks an SM (B = 256 systems on 132 SMs in one
+// wave).
+template <typename T, int H>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 && H <= 52 ? 2 : 1) wy_pair_kernel(
+    const T* __restrict__ A, const T* __restrict__ b, T* __restrict__ x, int n) {
+  constexpr int SL = pair_slot_elems(H);
+  constexpr int UL = 2 * H * kNb;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* slot = reinterpret_cast<T*>(smem_raw);  // slot q at slot + q SL
+  T* Ub = slot + 2 * SL;                     // U buffer q at Ub + q UL
+  T* Tb = Ub + 2 * UL;                       // T buffer q at Tb + q kNb^2
+  T* rinv = Tb + 2 * kNb * kNb;
+  T* Rs = rinv + round4(n);
+  const int ldr = n | 1;
+  const int tid = threadIdx.x;
+  const int c = tid >> 1, h = tid & 1, lane = tid & 31;
+  const unsigned pm = 3u << (lane & ~1);       // the pair's lanes
+  const unsigned hm = 0xffffu << (lane & 16);  // the half-warp's (a panel's) lanes
+  const long long sys = blockIdx.x;
+  const T* A_sys = A + sys * n * n;
+  const T* b_sys = b + sys * n;
+
+  // The pair's half-column: rows h H + r of column c, zero past n.
+  T col[H];
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    const int i = h * H + r;
+    T v = T(0);
+    if (i < n) {
+      if (c < n)
+        v = A_sys[(long long)i * n + c];
+      else if (c == n)
+        v = b_sys[i];
+    }
+    col[r] = v;
+  }
+  // Step p applies panel p (buffers p & 1) to the columns right of it and
+  // factors panel p + 1 (buffers (p + 1) & 1) on its owners, who update
+  // their columns first; step -1 only factors panel 0.
+  const int npan = n / kNb;
+  for (int p = -1; p < npan; ++p) {
+    const int j0 = p * kNb, jn = j0 + kNb;
+    if (c >= jn && c <= n) {
+      if (p >= 0)
+        wy_apply<T, H>(col, h, pm, Ub + (p & 1) * UL, Tb + (p & 1) * kNb * kNb, Rs, ldr, c, j0);
+      if (c < n && c < jn + kNb)
+        wy_factor<T, H>(col, c - jn, h, lane, pm, hm, slot, Ub + ((p + 1) & 1) * UL,
+                        Tb + ((p + 1) & 1) * kNb * kNb, Rs, rinv, ldr, jn);
+    }
+    __syncthreads();
+  }
+
+  // Back substitution R x = Q^T b on warp 0, column by column (K4b's pair
+  // route): lane l holds y_i, i = l + 32 q (y = Q^T b, then x_i once row i
+  // is solved); x_k = y_k (1 / R[k][k]) from its owner lane by __shfl_sync,
+  // then y_i -= R[i][k] x_k for i < k.
+  if (tid < 32) {
+    constexpr int Q = kPairCols / 32;
+    T y[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int i = lane + 32 * q;
+      y[q] = i < n ? Rs[n * ldr + i] : T(0);
+    }
+    for (int k = n - 1; k >= 0; --k) {
+      T yk = T(0);
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+        if (lane + 32 * q == k) yk = y[q];
+      const T xk = __shfl_sync(0xffffffffu, yk * rinv[k], k & 31);
+      const T* rk = Rs + k * ldr;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int i = lane + 32 * q;
+        if (i < k)
+          y[q] -= rk[i] * xk;
+        else if (i == k)
+          y[q] = xk;
+      }
+    }
+    T* x_sys = x + sys * n;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int i = lane + 32 * q;
+      if (i < n) x_sys[i] = y[q];
+    }
+  }
+}
+
+template <int H>
+int launch_pair(const void* A, const void* b, void* x, int B, int n, cudaStream_t stream) {
+  if (n < kNb || n % kNb != 0 || n + 1 > kPairCols || n > 2 * H)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)pair_elems(H, n);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        wy_pair_kernel<float, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  wy_pair_kernel<float, H><<<B, kThreads, smem, stream>>>(
+      static_cast<const float*>(A), static_cast<const float*>(b), static_cast<float*>(x), n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* A, const void* b, void* x, int B, int n, int nb, int route, int rows,
+             cudaStream_t s) {
+  if (route == 0) {
+    if (rows != 0) return (int)cudaErrorInvalidValue;
+    return launch_block<T>(A, b, x, B, n, nb, s);
+  }
+  if (route != 1 || nb != kNb || sizeof(T) != sizeof(float)) return (int)cudaErrorInvalidValue;
+  switch (rows) {
+    case 8: return launch_pair<8>(A, b, x, B, n, s);
+    case 16: return launch_pair<16>(A, b, x, B, n, s);
+    case 24: return launch_pair<24>(A, b, x, B, n, s);
+    case 32: return launch_pair<32>(A, b, x, B, n, s);
+    case 40: return launch_pair<40>(A, b, x, B, n, s);
+    case 48: return launch_pair<48>(A, b, x, B, n, s);
+    case 52: return launch_pair<52>(A, b, x, B, n, s);
+    case 64: return launch_pair<64>(A, b, x, B, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. Layouts (row-major, contiguous): A
-// (B,n,n), b (B,n), x (B,n), n a multiple of the panel width nb <= 16.
-// Returns cudaGetLastError().
+// (B,n,n), b (B,n), x (B,n), n a multiple of the panel width nb <= 16. The
+// plan (linear_solve.wy_plan): route 0 "block" (rows 0), 1 "pair" (float32,
+// nb = 8) with `rows` rows per thread (H, one of dispatch's cases; n <= 2H,
+// n + 1 <= 128 columns); the dynamic shared memory of either route is
+// derived here from n, nb and the dtype. A plan the kernels do not take returns
+// cudaErrorInvalidValue and launches nothing. Returns cudaGetLastError().
 extern "C" int mcp_wy_solve(int dtype, const void* A, const void* b, void* x, int B, int n,
-                            int nb, void* stream) {
+                            int nb, int route, int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(A, b, x, B, n, nb, s);
-  return launch<double>(A, b, x, B, n, nb, s);
+  if (dtype == 0) return dispatch<float>(A, b, x, B, n, nb, route, rows, s);
+  return dispatch<double>(A, b, x, B, n, nb, route, rows, s);
 }

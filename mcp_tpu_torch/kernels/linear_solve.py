@@ -33,7 +33,12 @@ float32 or float64.
   A ← A − U·(Tᵀ·(UᵀA)); n is padded to a multiple of ``panel`` with identity
   rows and columns (K8b; replaces ``::_wy_qr_solve_kernel``; no tier reaches
   it, the JAX package's ``scripts/profile_qp_phases.py`` times it beside
-  the unblocked QR).
+  the unblocked QR). Two routes, picked by ``wy_plan(n, panel, dtype)``:
+  ``"pair"`` (float32, panel 8, K4b's pair layout in registers; each panel
+  factored warp-synchronously by one half-warp, then one block barrier and
+  the block reflector applied by every trailing pair) or ``"block"``
+  ([A | b], the panel, U and T in shared memory); ``wy_solve`` counts
+  launches per route in ``.route_launches``.
 
 Failure semantics are the reference's. GJ guards its pivot as
 ``1/where(|p| > 1e-30, p, 1e-30)``: a zero pivot gives huge values, not NaN.
@@ -489,33 +494,83 @@ def pallas_gauss_solve(A: Tensor, b: Tensor) -> Tensor:
 pallas_gauss_solve.launches = 0
 
 
-def wy_solve(A: Tensor, b: Tensor, *, panel: int = 8) -> Tensor:
+#: The pair route of K8b (``csrc/wy_qr.cu``): K4b's pair layout and limits
+#: (``PAIR_COLS``, ``PAIR_ROWS``), panels of ``WY_PAIR_PANEL`` columns
+#: factored by one half-warp each (the kernel's ``kNb``), float32 only: in
+#: float64 at (256, 104) it ran no faster on an H100 than the block route
+#: (PERF.md), so the kernel has no float64 instance of it.
+WY_PAIR_PANEL = 8
+WY_ROUTES = ("pair", "block")
+_WY_ROUTE_CODES = {"block": 0, "pair": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class WYPlan:
+    """K8b's launch for one (padded n, panel, dtype): ``route`` "pair" or
+    "block" (256 threads and one system per block either way), and on the
+    pair route the rows per thread ``rows`` (H; 0 on the block route)."""
+
+    route: str
+    rows: int
+
+
+def wy_plan(n: int, panel: int, dtype, route: str | None = None) -> WYPlan:
+    """K8b's plan at order n (padded by the wrapper to a multiple of
+    ``panel``) in ``dtype``: the pair route in float32 for ``panel`` =
+    ``WY_PAIR_PANEL`` and n + 1 ≤ ``PAIR_COLS``, else the block route.
+    ``route`` forces one
+    (the A/B comparison of ``chip_smoke.py``); raises ``ValueError`` where
+    the route does not take the shape, or where the block route's matrix
+    does not fit a block's shared memory."""
+    if route not in (None, *WY_ROUTES):
+        raise ValueError(f"wy_plan: route must be one of {WY_ROUTES}, got {route!r}")
+    if not 1 <= panel <= WY_MAX_PANEL:
+        raise ValueError(f"wy_plan: panel must be in 1..{WY_MAX_PANEL}, got {panel}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    npad = -(-n // panel) * panel
+    if route != "block":
+        rows = next((r for r in PAIR_ROWS if npad <= 2 * r), None)
+        if (rows is not None and panel == WY_PAIR_PANEL and dtype == torch.float32
+                and 1 <= npad and npad + 1 <= PAIR_COLS):
+            return WYPlan("pair", rows)
+        if route == "pair":
+            raise ValueError(f"wy_plan: the pair route does not take n={n} (padded {npad}), "
+                             f"panel {panel} in {dtype}")
+    _check_fits("wy_solve", npad, npad + 1, dtype, _wy_smem_bytes(npad, panel, itemsize))
+    return WYPlan("block", 0)
+
+
+def wy_solve(A: Tensor, b: Tensor, *, panel: int = 8, plan: WYPlan | None = None) -> Tensor:
     """Compact-WY blocked Householder-QR solve, A (B, n, n), b (B, n) →
     x (B, n), in panels of ``panel`` ≤ 16 columns (K8b; see the module
-    docstring)."""
+    docstring); ``plan`` (default ``wy_plan``'s) is for A/B comparisons of
+    its routes."""
     _check("wy_solve", A, b)
     if not 1 <= panel <= WY_MAX_PANEL:
         raise ValueError(f"wy_solve: panel must be in 1..{WY_MAX_PANEL}, got {panel}")
     if A.device.type == "cpu":
         return wy_solve_plain(A, b, panel)
     n0 = A.shape[-1]
+    plan = plan or wy_plan(n0, panel, A.dtype)
     Ap, bp = _pad_to_panel(A, b, panel)
     n = Ap.shape[-1]
-    _check_fits("wy_solve", n, n + 1, A.dtype, _wy_smem_bytes(n, panel, A.element_size()))
     x = torch.empty_like(bp)
     if A.shape[0] and n:
         B = A.shape[0]
         with torch.cuda.device(A.device):
             err = _entry("wy_qr", "mcp_wy_solve")(
                 0 if A.dtype == torch.float32 else 1, Ap.data_ptr(), bp.data_ptr(),
-                x.data_ptr(), B, n, panel, torch.cuda.current_stream().cuda_stream)
+                x.data_ptr(), B, n, panel, _WY_ROUTE_CODES[plan.route], plan.rows,
+                torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"mcp_wy_solve launch failed: CUDA error {err}")
         wy_solve.launches += 1
+        wy_solve.route_launches[plan.route] += 1
     return x[:, :n0]
 
 
 wy_solve.launches = 0
+wy_solve.route_launches = dict.fromkeys(WY_ROUTES, 0)
 #: The widest panel K8b's kernel takes (its per-thread column products).
 WY_MAX_PANEL = 16
 
@@ -531,7 +586,7 @@ def _entry(lib: str, symbol: str):
                            vp]
         else:
             nptr = 4 if lib == "gauss_jordan" else 3
-            extra = {"wy_qr": [ci], "gauss_jordan": [ci, ci], "qr_dense": [ci, ci]}.get(lib, [])
+            extra = {"wy_qr": [ci] * 3, "gauss_jordan": [ci, ci], "qr_dense": [ci, ci]}.get(lib, [])
             fn.argtypes = [ci] + [vp] * nptr + [ci, ci] + extra + [vp]
         fn.restype = ctypes.c_int
     return fn

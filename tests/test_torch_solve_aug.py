@@ -168,16 +168,18 @@ def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
     users = {n for n in _build.SOURCES if '#include "solve_aug.cuh"'
              in (csrc / f"{n}.cu").read_text()}
     assert users == {"thomas", "thomas_babe", "thomas_multi"}
-    # K3 includes it through the slab header and K4b/K4c through the group
-    # header, which the digest follows too.
+    # K3 includes it through the slab header and K4b/K4c and K8b through the
+    # group header, which the digest follows too.
     assert '#include "solve_aug_slab.cuh"' in (csrc / "cyclic_reduction.cu").read_text()
     assert '#include "solve_aug.cuh"' in (csrc / "solve_aug_slab.cuh").read_text()
     assert '#include "solve_aug_group.cuh"' in (csrc / "qr_dense.cu").read_text()
+    assert '#include "solve_aug_group.cuh"' in (csrc / "wy_qr.cu").read_text()
     assert '#include "solve_aug.cuh"' in (csrc / "solve_aug_group.cuh").read_text()
     assert ({n for n in _build.SOURCES if before[n] != after[n]}
-            == users | {"cyclic_reduction", "qr_dense"})
-    # The cluster primitives: K3 (through the slab header) and K8a.
+            == users | {"cyclic_reduction", "qr_dense", "wy_qr"})
+    # The cluster primitives: K3 (through the slab header), K8a and K2.
     header = csrc / "cluster.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     again = {n: _build.library_path(n) for n in _build.SOURCES}
-    assert {n for n in _build.SOURCES if after[n] != again[n]} == {"cyclic_reduction", "qr_sep"}
+    assert ({n for n in _build.SOURCES if after[n] != again[n]}
+            == {"cyclic_reduction", "qr_sep", "linesearch"})
