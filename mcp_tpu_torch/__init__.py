@@ -8,8 +8,12 @@ retry rounds, the terminal polish, batched and streamed serving and the
 true-KKT certifier; differentiation through the solve by the implicit
 function theorem (``diff.py``) and the solver-in-the-loop training step
 (``selection/train.py``); the one-instance entry points ``solve`` and
-``solve_game``; and, over ``torch.distributed`` ranks, batch-sharded solves
-and the horizon-sharded SPIKE solve (``parallel/mesh.py``,
+``solve_game``; the warm-started receding horizon
+(``trajectories/strategies.py``, the lane-change demos); the benchmark
+harness and entry point (``bench/harness.py``, ``bench/main.py``, run as
+``bench_cuda.py``) with the double-word QP refinement (``utils/twofloat.py``,
+``bench/qp_dw.py``); and, over ``torch.distributed`` ranks, batch-sharded
+solves and the horizon-sharded SPIKE solve (``parallel/mesh.py``,
 ``parallel/horizon.py``). Linear-solver tiers: every banded tier of the JAX
 package ("tridiag", "tridiag_cr", "tridiag_auto" and each
 "tridiag_pallas*", with a row time structure or without one) and the dense

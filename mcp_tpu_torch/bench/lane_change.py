@@ -2,8 +2,8 @@
 game at horizon 10, with random initial states inside the road polygon and
 random lane preferences.
 
-The θ samplers draw from a ``torch.Generator``; they match the JAX package's
-samplers in distribution, not in values.
+The θ samplers draw from a ``torch.Generator`` on its own device; they match
+the JAX package's samplers in distribution, not in values.
 """
 
 from __future__ import annotations
@@ -59,19 +59,20 @@ def generate_parameter_batch(
     positions uniform inside the road (0.5 m margin) in its lower half,
     player 2 pushed 2.5 m ahead when the two start closer than 2.5 m, small
     forward velocities, and a uniformly chosen preferred lane center. Drawn
-    on the CPU from ``generator`` (a CPU generator), then moved to
-    ``device``."""
+    in float64 on the generator's device (a CPU generator draws on the
+    CPU, a CUDA one on the card), then moved to ``device``."""
     device = resolve_device(device)
     num_lanes = len(bench.lane_centers)
     road_width = num_lanes * lane_width
-    g, f64 = generator, torch.float64
-    px = 0.5 + (road_width - 1.0) * torch.rand(batch, 2, generator=g, dtype=f64)
-    py = 1.0 + (0.5 * height - 1.0) * torch.rand(batch, 2, generator=g, dtype=f64)
+    g = generator
+    kw = dict(generator=g, dtype=torch.float64, device=g.device)
+    px = 0.5 + (road_width - 1.0) * torch.rand(batch, 2, **kw)
+    py = 1.0 + (0.5 * height - 1.0) * torch.rand(batch, 2, **kw)
     too_close = (px[:, 0] - px[:, 1]) ** 2 + (py[:, 0] - py[:, 1]) ** 2 < 6.25
     py[:, 1] = torch.where(too_close, py[:, 0] + 2.5, py[:, 1])
-    v = 2.0 * torch.rand(batch, 2, 2, generator=g, dtype=f64)
-    lane_idx = torch.randint(0, num_lanes, (batch, 2), generator=g)
-    lanes = torch.as_tensor(bench.lane_centers, dtype=f64)[lane_idx]
+    v = 2.0 * torch.rand(batch, 2, 2, **kw)
+    lane_idx = torch.randint(0, num_lanes, (batch, 2), generator=g, device=g.device)
+    lanes = torch.as_tensor(bench.lane_centers, dtype=torch.float64, device=g.device)[lane_idx]
     theta = torch.stack(
         [px[:, 0], py[:, 0], v[:, 0, 0], v[:, 0, 1], lanes[:, 0],
          px[:, 1], py[:, 1], v[:, 1, 0], v[:, 1, 1], lanes[:, 1]],

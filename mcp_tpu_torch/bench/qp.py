@@ -8,8 +8,8 @@ with Bernoulli sparsity masks (rate 0.9 by default) and 100 primals and 100
 inequalities. About 1 draw in 256 is infeasible by construction (a masked
 row of A can leave no x with Ax ≥ b).
 
-The θ samplers draw from a ``torch.Generator``; they match the JAX package's
-samplers in distribution, not in values.
+The θ samplers draw from a ``torch.Generator`` on its own device; they match
+the JAX package's samplers in distribution, not in values.
 """
 
 from __future__ import annotations
@@ -87,23 +87,24 @@ def generate_parameter_batch(
 ) -> Tensor:
     """(batch, p) random sparse convex-QP parameters: P and A standard
     normal with each entry kept with probability 1 − sparsity_rate, M = PᵀP,
-    b and ϕ standard normal. Drawn in float64 on the CPU from ``generator``
-    (a CPU generator), then moved to ``device`` in ``dtype``."""
+    b and ϕ standard normal. Drawn in float64 on the generator's device (a
+    CPU generator draws on the CPU, a CUDA one on the card) from
+    ``generator``, then moved to ``device`` in ``dtype``."""
     device = resolve_device(device)
     n, m = num_primals, num_inequalities
-    g, f64 = generator, torch.float64
+    kw = dict(generator=generator, dtype=torch.float64, device=generator.device)
     keep = 1.0 - sparsity_rate
 
     def sparse_normal(rows, cols):
-        values = torch.randn((batch, rows, cols), generator=g, dtype=f64)
-        mask = torch.rand((batch, rows, cols), generator=g, dtype=f64) < keep
+        values = torch.randn((batch, rows, cols), **kw)
+        mask = torch.rand((batch, rows, cols), **kw) < keep
         return values * mask
 
     P = sparse_normal(n, n)
     M = P.mT @ P
     A = sparse_normal(m, n)
-    b = torch.randn((batch, m), generator=g, dtype=f64)
-    phi = torch.randn((batch, n), generator=g, dtype=f64)
+    b = torch.randn((batch, m), **kw)
+    phi = torch.randn((batch, n), **kw)
     theta = torch.cat([M.reshape(batch, -1), A.reshape(batch, -1), b, phi], dim=1)
     return theta.to(device=device, dtype=dtype)
 

@@ -196,7 +196,12 @@ class _IFTSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(mcp, options, tridiag_solver, theta, x0, y0, s0):
-        return tuple(ip_solve(mcp, options, theta, x0, y0, s0, tridiag_solver))
+        out = ip_solve(mcp, options, theta, x0, y0, s0, tridiag_solver)
+        # A solve whose loop never runs (max_outer_iters ≤ 1) returns its
+        # starting point itself; autograd saves no input as an output, so
+        # such an output leaves as a view.
+        inputs = (theta, x0, y0, s0)
+        return tuple(v.view_as(v) if any(v is a for a in inputs) else v for v in out)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

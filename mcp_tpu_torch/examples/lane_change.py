@@ -1,4 +1,4 @@
-"""Two-player lane-change trajectory game.
+"""Two-player lane-change trajectory game, and its receding-horizon demos.
 
 Two planar double integrators on a two-lane road; each player tracks a lane
 preference (its per-player parameter) and a nominal forward speed and
@@ -9,20 +9,27 @@ coupling rows).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from .._device import resolve_device
 from ..games import ParametricGame
+from ..solver import SolverOptions
 from ..trajectories import (
     PolygonEnvironment,
     ProductDynamics,
     TimeSeparableTrajectoryGameCost,
     TrajectoryGame,
+    WarmStartRecedingHorizonStrategy,
     build_parametric_game,
     mean_reducer,
     planar_double_integrator,
+    rollout,
 )
+
+#: Both demos' initial joint state: P1 in the left lane, P2 in the right.
+DEMO_INITIAL_STATE = (1.0, 1.0, 0.0, 1.0, 3.2, 0.9, 0.0, 1.0)
 
 
 class RoadEnvironment(NamedTuple):
@@ -109,3 +116,84 @@ def build_lane_change_game(
         game=game, horizon=horizon, params_per_player=1, device=device
     )
     return game, parametric_game, road
+
+
+def _receding_horizon_rollout(game, parametric_game, road, initial_state, *, horizon,
+                              turn_length, num_sim_steps, options):
+    """Both players prefer the left lane; roll the warm-started receding-
+    horizon strategy out from ``initial_state``, recording each step's
+    latest solve status."""
+    lane = initial_state.new_tensor([road.lane_centers[0]])
+    strategy = WarmStartRecedingHorizonStrategy(
+        game=game,
+        parametric_game=parametric_game,
+        turn_length=turn_length,
+        horizon=horizon,
+        parameters=[lane, lane],
+        options=options,
+    )
+    sim = rollout(
+        game.dynamics,
+        strategy,
+        initial_state,
+        num_sim_steps,
+        get_info=lambda strat, x, t: strat.solution_status,
+    )
+    return sim, strategy
+
+
+def run_lane_change_example(
+    *,
+    initial_state=None,
+    horizon: int = 10,
+    height: float = 50.0,
+    num_lanes: int = 2,
+    lane_width: float = 2.0,
+    num_sim_steps: int = 10,
+    turn_length: int = 2,
+    options: Optional[SolverOptions] = None,
+    device="cuda",
+    dtype=torch.float32,
+):
+    """End-to-end receding-horizon lane-change demo: both players prefer the
+    left lane; P2 starts in the right lane and must merge behind or ahead
+    while keeping the 2 m separation. The game's constants and the states
+    live on ``device`` (default ``"cuda"``, which raises without a GPU) in
+    ``dtype``; each re-plan is one ``solve_game`` on the tier ``options``
+    names (default "schur"). Returns (rollout, strategy)."""
+    device = resolve_device(device)
+    game, parametric_game, road = build_lane_change_game(
+        horizon=horizon, num_lanes=num_lanes, lane_width=lane_width, height=height,
+        device=device,
+    )
+    if initial_state is None:
+        initial_state = DEMO_INITIAL_STATE
+    initial_state = torch.as_tensor(initial_state, dtype=dtype, device=device)
+    return _receding_horizon_rollout(
+        game, parametric_game, road, initial_state, horizon=horizon,
+        turn_length=turn_length, num_sim_steps=num_sim_steps, options=options,
+    )
+
+
+def run_lane_change_origin_example(
+    *, num_sim_steps: int = 150, options: Optional[SolverOptions] = None, device="cuda",
+    dtype=torch.float32,
+):
+    """The reference's original lane-change demo: the same game as
+    ``run_lane_change_example`` but a tighter velocity box (±5 m/s lateral,
+    0–5 m/s forward), 150 simulation steps with a re-plan every 3, and no
+    gradient probe inside the receding-horizon solve."""
+    device = resolve_device(device)
+    game, parametric_game, road = build_lane_change_game(
+        horizon=10,
+        state_bounds={
+            "lb": [-math.inf, -math.inf, -5.0, 0.0],
+            "ub": [math.inf, math.inf, 5.0, 5.0],
+        },
+        device=device,
+    )
+    initial_state = torch.tensor(DEMO_INITIAL_STATE, dtype=dtype, device=device)
+    return _receding_horizon_rollout(
+        game, parametric_game, road, initial_state, horizon=10, turn_length=3,
+        num_sim_steps=num_sim_steps, options=options,
+    )

@@ -1,5 +1,5 @@
-"""Trajectory-game front end: dynamics, environment and cost types, and the
-TrajectoryGame → MCP compiler."""
+"""Trajectory-game front end: dynamics, environment and cost types, the
+TrajectoryGame → MCP compiler, and warm-started receding-horizon control."""
 
 from .dynamics import Bounds, LinearDynamics, ProductDynamics, planar_double_integrator
 from .environment import PolygonEnvironment, box_constraint_fn
@@ -13,6 +13,16 @@ from .packing import (
     unpack_trajectory,
 )
 from .game_builder import build_parametric_game
+from .strategies import (
+    JointStrategy,
+    OpenLoopStrategy,
+    Rollout,
+    WarmStartRecedingHorizonStrategy,
+    cold_start_primal,
+    rollout,
+    solve_trajectory_game,
+    zero_input_trajectory,
+)
 
 __all__ = [
     "Bounds",
@@ -31,4 +41,12 @@ __all__ = [
     "unpack_parameters",
     "unpack_trajectory",
     "build_parametric_game",
+    "JointStrategy",
+    "OpenLoopStrategy",
+    "Rollout",
+    "WarmStartRecedingHorizonStrategy",
+    "cold_start_primal",
+    "rollout",
+    "solve_trajectory_game",
+    "zero_input_trajectory",
 ]

@@ -1,21 +1,53 @@
-"""Closed-loop rollout and the zero-input cold start of trajectory-game
-solves (the JAX package's ``trajectories/strategies.py:62-113``): the first
-solve of a scenario seeds the primal with a zero-control rollout of the
-dynamics and zero equality duals.
+"""Open-loop and joint strategies, closed-loop rollout, and warm-started
+receding-horizon control of trajectory games.
 
-The warm-started receding-horizon strategy is not ported yet (ROADMAP
-Queue 1 item 5).
+The first solve of a scenario seeds the primal with a zero-control rollout
+of the dynamics and zero equality duals; later solves warm-start from the
+last solution's (x, y); the receding-horizon strategy re-plans when its
+plan ages past ``turn_length``. The solves run on the card (or wherever θ
+lives); the strategy that owns the warm start across re-plans is host-side
+Python, since which solution to keep depends on each solve's status.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from ..games import ParametricGame
+from ..games import GameSolveResult, ParametricGame, solve_game
+from ..solver import SolverOptions
+from ..types import SOLVED
 from .costs import TrajectoryGame
-from .packing import PlayerTrajectory, pack_trajectory
+from .packing import (
+    PlayerTrajectory,
+    pack_parameters,
+    pack_trajectory,
+    unpack_parameters,
+    unpack_trajectory,
+)
+
+
+@dataclasses.dataclass
+class OpenLoopStrategy:
+    """Replays a precomputed open-loop plan (ignores the observed state)."""
+
+    xs: torch.Tensor  # (T, state_dim_i)
+    us: torch.Tensor  # (T, control_dim_i)
+
+    def __call__(self, state, t: int) -> torch.Tensor:
+        return self.us[t]
+
+
+@dataclasses.dataclass
+class JointStrategy:
+    """Per-player substrategies applied to the joint state."""
+
+    substrategies: Sequence[Callable]
+
+    def __call__(self, state, t: int) -> torch.Tensor:
+        return torch.cat([sub(state, t) for sub in self.substrategies])
 
 
 class Rollout(NamedTuple):
@@ -65,3 +97,84 @@ def cold_start_primal(
     tau = torch.cat(pack_trajectory(trajs))
     dims = parametric_game.dims
     return torch.cat([tau, tau.new_zeros(sum(dims.lam) + dims.shared_lam)])
+
+
+def solve_trajectory_game(
+    game: TrajectoryGame,
+    horizon: int,
+    parameter_blocks: Sequence[torch.Tensor],
+    *,
+    parametric_game: ParametricGame,
+    last_solution: Optional[GameSolveResult] = None,
+    options: Optional[SolverOptions] = None,
+    warm_start_slacks: bool = False,
+    **solve_kwargs,
+) -> tuple[JointStrategy, GameSolveResult]:
+    """One receding-horizon plan update: warm-starts from ``last_solution``
+    when it SOLVED (its (x, y), and its s too under ``warm_start_slacks``:
+    an off-central s₀ = 1 stalls Mehrotra, which re-solves in ~3 iterations
+    from s₀ = s*); otherwise cold-starts from the zero-input rollout
+    (``cold_start_primal``). θ's blocks set the dtype and device."""
+    if last_solution is not None and int(last_solution.status) == SOLVED:
+        if warm_start_slacks:
+            solve_kwargs = dict(solve_kwargs, s0=last_solution.s)
+        sol = solve_game(
+            parametric_game,
+            parameter_blocks,
+            x0=last_solution.x,
+            y0=last_solution.y,
+            options=options,
+            **solve_kwargs,
+        )
+    else:
+        initial_blocks, _ = unpack_parameters(parameter_blocks, dynamics=game.dynamics)
+        x0 = cold_start_primal(game, parametric_game, horizon, torch.cat(initial_blocks))
+        sol = solve_game(parametric_game, parameter_blocks, x0=x0, options=options,
+                         **solve_kwargs)
+    trajs = unpack_trajectory(sol.primals, dynamics=game.dynamics, horizon=horizon)
+    strategy = JointStrategy([OpenLoopStrategy(t.xs, t.us) for t in trajs])
+    return strategy, sol
+
+
+@dataclasses.dataclass
+class WarmStartRecedingHorizonStrategy:
+    """Receding-horizon strategy with warm starting, callable as (state,
+    time) inside ``rollout``: it re-plans when the current plan ages past
+    ``turn_length``. A failed solve does not overwrite the warm start."""
+
+    game: TrajectoryGame
+    parametric_game: ParametricGame
+    turn_length: int
+    horizon: int
+    parameters: Sequence[torch.Tensor]  # per-player extra params (beyond initial state)
+    options: Optional[SolverOptions] = None
+    receding_horizon_strategy: Optional[JointStrategy] = None
+    time_last_updated: int = 0
+    last_solution: Optional[GameSolveResult] = None
+    solution_status: Optional[int] = None
+
+    def __call__(self, state, time: int) -> torch.Tensor:
+        plan_exists = self.receding_horizon_strategy is not None
+        time_along_plan = time - self.time_last_updated
+        plan_is_valid = 0 <= time_along_plan < self.turn_length
+
+        if not plan_exists or not plan_is_valid:
+            state_blocks = self.game.dynamics.state_blocking.split(torch.as_tensor(state))
+            theta_blocks = pack_parameters(state_blocks, self.parameters)
+            strategy, sol = solve_trajectory_game(
+                self.game,
+                self.horizon,
+                theta_blocks,
+                parametric_game=self.parametric_game,
+                last_solution=self.last_solution,
+                options=self.options,
+            )
+            self.receding_horizon_strategy = strategy
+            status = int(sol.status)
+            if status == SOLVED:
+                self.last_solution = sol
+            self.solution_status = status
+            self.time_last_updated = time
+            time_along_plan = 0
+
+        return self.receding_horizon_strategy(state, time_along_plan)

@@ -1,5 +1,6 @@
-"""Rounding surveys behind two of the port's cross-package tolerances, on
-the CPU (not collected by pytest; run from the repository root).
+"""Rounding surveys behind two of the port's cross-package tolerances, and
+behind the double-word QP row's uncertified lanes, on the CPU (not
+collected by pytest; run from the repository root).
 
   python tests/survey_rounding.py cr-lanes TIER FIRST LAST
       Per-lane float32 status and outer iterations of the lane change
@@ -15,6 +16,14 @@ the CPU (not collected by pytest; run from the repository root).
       JAX package's SPIKE on 2, 4 and 8 virtual devices, its "tridiag_cr",
       the port's SPIKE on 2, 4, 8 slabs (one process) and its
       "tridiag_cr", and the JAX package's true residual at its solutions.
+
+  python tests/survey_rounding.py dw-lanes SEED...
+      For each seed, a QP batch of 256 (the port's sampler, CPU generator)
+      solved by the port in float32 with the --dw row's first stage
+      (Mehrotra on "schur_pallas_gj", tol 1e-5, polish), then refined by
+      both packages' polish_batch_dw (8 steps, tol 1e-6) from the same
+      iterates: the SOLVED lanes each leaves above 1e-6, and the share of
+      all lanes at 1e-6.
 """
 
 import functools
@@ -123,11 +132,36 @@ def t64():
         print(f"{i}: " + " ".join(f"{np.abs(xs[k] - xs[m]).max():.4f}" for m in names))
 
 
+def dw_lanes(seeds):
+    from mcp_tpu.bench import qp_dw as jdw
+    from mcp_tpu_torch.bench import qp, qp_dw
+
+    problem = qp.generate_test_problem(device="cpu")
+    opts = SolverOptions(tol=1e-5, linear_solver="schur_pallas_gj", algorithm="mehrotra",
+                         polish=True, refinement_steps=0, max_outer_iters=25,
+                         retry_max_outer_iters=8, retry_linear_solver="schur_pallas",
+                         tightening_rate=0.1)
+    for seed in seeds:
+        th = qp.generate_parameter_batch(torch.Generator().manual_seed(seed), 256,
+                                         device="cpu")
+        res = solve_batch(problem.mcp, th, options=opts)
+        solved = res.status.numpy() == 0
+        _, tk = qp_dw.polish_batch_dw(th, res.x, res.y, res.s, n=100, m=100)
+        _, jtk = jdw.polish_batch_dw(*(jnp.asarray(v.numpy()) for v in (th, res.x, res.y,
+                                                                        res.s)), n=100, m=100)
+        for name, k in (("port", tk.numpy()), ("jax", np.asarray(jtk))):
+            print(f"seed {seed} {name}: {int(solved.sum())} SOLVED, above 1e-6 "
+                  f"{np.flatnonzero(solved & (k > 1e-6)).tolist()}, at 1e-6 "
+                  f"{float(np.mean(k <= 1e-6)):.4f}", flush=True)
+
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
     if sys.argv[1] == "cr-lanes":
         cr_lanes(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     elif sys.argv[1] == "t64":
         t64()
+    elif sys.argv[1] == "dw-lanes":
+        dw_lanes([int(a) for a in sys.argv[2:]])
     else:
         raise SystemExit(__doc__)
