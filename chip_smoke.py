@@ -17,7 +17,8 @@ before it and read just after:
   * the masked N-player flagship games on tier "tridiag_auto" (horizon 30,
     batch 8, float32, tol 1e-4): N=4 (b=40, hybrid with refinement 0, four
     batches after a warm one; K3 with pivoted Gauss–Jordan) and N=10
-    (b=100, "ip", one batch; K3 with refined pivoted Gauss–Jordan);
+    (b=100, "ip", one batch cut to 10 outer iterations; K3 with refined
+    pivoted Gauss–Jordan);
   * the solver-in-the-loop training step on tier "tridiag_pallas" (N=4,
     horizon 30, batch 8, float32: MLP → masked-game solve → loss → IFT
     gradient → SGD; the two-way sweep K7a in the forward and the backward,
@@ -39,13 +40,27 @@ before it and read just after:
     batch 256: the streamed lane change and QP (4 batches x 2 spans; K1
     and K2, K4a), the warm sweep (10 steps; K1, K2) and the double-word QP
     row (2 repeats; K4b/K4c), each held to its certification, success
-    floor and timing cross-check, and ``python3 bench_cuda.py --quick`` as
-    a child process; the receding-horizon lane-change demo on
-    "schur_pallas" (K8a) against its CPU float64 run;
+    floor and timing cross-check; the receding-horizon lane-change demo on
+    "schur_pallas" (K8a) against its CPU float64 run, and beside it
+    ``python3 bench_cuda.py --quick`` as a child process;
+  * the player-selection pipeline on tier "tridiag_pallas" (N=4, horizon
+    30, float32; K7a and K2): 32 scenarios from the native sampler, the
+    ground truth of 24 in one chunk (certified by true KKT), ``train()``
+    (16 examples, 8 to validate, batch 8, 2 epochs; K7a in the forward and
+    the backward), the checkpoint reloaded and the NN mode's evaluation
+    sweep over 8 held-out scenarios (12 steps, past its 10-step bootstrap),
+    ``solve_subgames``; and in child processes beside them, started with
+    the phase, the CPU's float64 solve of two ground-truth scenarios, the
+    three heuristic modes' sweep (2 steps) with one serial rollout held
+    against its batched one, the real-data rollout of
+    tests/fixtures/ped/scenario1.csv and the three CLIs
+    (``python -m mcp_tpu_torch.scripts.datagen|train_selection|
+    evaluate_selection``); every sweep file goes through the metrics;
 
 certifies each result with the true KKT residual, checks a few lanes
 against a float64 CPU reference, checks the training gradient against
-finite differences (float64) and against the CPU's float64 gradient, times
+finite differences (float64) and against the CPU's float64 gradient (a
+child process beside the finite differences), times
 each kernel (and each fact) beside its bound, its plain version and a
 library call, times K1 (and its facts), K4a and K5 on their plan's route
 (registers: one warp per system, or a 256-thread tile), K4b/K4c (a lane
@@ -145,7 +160,12 @@ QP_REF_REL_TOL = 1e-2
 FLAG_B, FLAG_T, N4_BATCHES = 8, 30, 4
 N4_OPTIONS = dict(tol=1e-4, linear_solver="tridiag_auto", algorithm="hybrid",
                   refinement_steps=0, polish=True)
-N10_OPTIONS = dict(tol=1e-4, linear_solver="tridiag_auto", algorithm="ip", polish=True)
+# The N=10 batch is cut in depth to 10 outer iterations (the solver's default
+# is 50): its two FAILED lanes set its time (245 s on an H100 with 50, 123 s
+# with 20, 70 s with 10), and its six SOLVED lanes take 6-9 (the same lanes
+# solve at 50, 20 and 10; PERF.md §6).
+N10_OPTIONS = dict(tol=1e-4, linear_solver="tridiag_auto", algorithm="ip", polish=True,
+                   max_outer_iters=10)
 N4_MIN_SUCCESS, N10_MIN_SUCCESS = 0.9, 0.75
 # The N=10 batch runs for minutes (its failing lanes iterate to
 # max_outer_iters); its profile covers the first N10_PROFILE_INNER Newton
@@ -247,6 +267,7 @@ K2_SHAPES = ((256, 200, 250), (8, 1200, 1470), (8, 3000, 3630))
 K2_KINDS = ("feasible", "partly_feasible", "infeasible", "nan_direction", "edges")
 K7A_GROUP_KERNEL = r"\bbabe_group_kernel<"
 FD_TOL, F32_GRAD_TOL = 3e-8, 1e-4
+GRAD_CPU_THREADS = 4  # the CPU float64 step's threads, beside the card's checks
 
 
 class PhaseFailed(Exception):
@@ -2151,25 +2172,102 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
     return s, warm["args"], launches, stats
 
 
-def phase_train_gradients(device):
-    """The gradient checks of GRAD_B lanes of the training game (see
-    FD_TOL, F32_GRAD_TOL). Returns the float64 IFT operands of the first
-    check and the measured errors."""
+def grad_cpu_step(path):
+    """The CPU's float64 training step of ``phase_train_gradients``, run in a
+    child process (``python3 -c``) beside the card's checks: its operands
+    from ``path`` (``torch.save``: the float32 weights and inputs, the
+    options and config), its status, gradient and seconds to ``path.out``."""
     import torch
 
-    from mcp_tpu_torch import SOLVED
-    from mcp_tpu_torch.bench.flagships import masked_game_setup, train_step_setup
+    from mcp_tpu_torch.bench.flagships import masked_game_setup
     from mcp_tpu_torch.convert import mlp_params_from_numpy
     from mcp_tpu_torch.selection import make_train_step
 
+    torch.set_num_threads(GRAD_CPU_THREADS)
+    a = torch.load(path, weights_only=False)
     f64 = torch.float64
+    t0 = time.perf_counter()
+    cpu = masked_game_setup(GRAD_B, 4, FLAG_T, device="cpu", dtype=f64)
+    cpu_step, _, _ = make_train_step(dataclasses.replace(cpu.runner, options=a["options"]),
+                                     a["config"])
+    model64 = mlp_params_from_numpy(a["weights"], a["biases"], device="cpu", dtype=f64)
+    _, (_, st64), g64 = cpu_step(model64, *(x.to(f64) for x in a["inputs32"]))
+    torch.save({"status": st64, "grads": [g.detach() for g in g64],
+                "seconds": time.perf_counter() - t0}, f"{path}.out")
+
+
+def phase_train_gradients(device):
+    """The gradient checks of GRAD_B lanes of the training game (see
+    FD_TOL, F32_GRAD_TOL); the CPU's float64 step runs in a child process
+    (``grad_cpu_step``) while the card's checks run. Returns the float64
+    IFT operands of the first check and the measured errors."""
+    import torch
+
+    from mcp_tpu_torch.bench.flagships import train_step_setup
+    from mcp_tpu_torch.convert import mlp_params_from_numpy
+
+    f64, f32 = torch.float64, torch.float32
     s = train_step_setup(GRAD_B, 4, FLAG_T, tier="tridiag_pallas", seed=GRAD_SEED,
                          device=device, dtype=f64)
+    # The card's float32 step (the training options) against the CPU's
+    # float64 step, both on the float64 setup's inputs and weights rounded to
+    # float32.
+    weights = [layer.weight.detach().cpu().numpy().astype(np.float32) for layer in s.model.layers]
+    biases = [layer.bias.detach().cpu().numpy().astype(np.float32) for layer in s.model.layers]
+    inputs32 = [a.to(f32) for a in (s.trajectories, s.init, s.goals)]
+    work = Path(rank_dir("gradcheck"))
+    operands = str(work / "operands.pt")
+    torch.save({"weights": weights, "biases": biases, "options": s.runner.options,
+                "config": s.config, "inputs32": [a.cpu() for a in inputs32]}, operands)
+    with open(work / "stderr.txt", "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.grad_cpu_step(sys.argv[1])",
+             operands], cwd=Path(__file__).resolve().parent, stdout=subprocess.DEVNULL,
+            stderr=err)
+    try:
+        ift_args, errs = _train_gradient_checks(s, device)
+        _, (_, st32), g32 = s.train_step(mlp_params_from_numpy(weights, biases, device=device,
+                                                               dtype=f32), *inputs32)
+        try:
+            child.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    check(child.returncode == 0, "gradient check: the CPU float64 step failed: "
+          + (work / "stderr.txt").read_text()[-2000:])
+    out = torch.load(f"{operands}.out", weights_only=False)
+    st64, g64 = out["status"], out["grads"]
+    up = lambda a: a.detach().to(device="cpu", dtype=f64)
+    scale = max(float(g.abs().max()) for g in g64)
+    errs["f32_vs_cpu_f64"] = max(float((up(a) - b).abs().max()) for a, b in zip(g32, g64)) / scale
+    log(f"  card float32 vs CPU float64 gradient of one step ({GRAD_B} lanes): status "
+        f"{st32.tolist()} vs {st64.tolist()}, max|g32-g64|/max|g64| = "
+        f"{errs['f32_vs_cpu_f64']:.3e} (tol {F32_GRAD_TOL:g}), CPU {out['seconds']:.1f} s "
+        "(child process)")
+    check(torch.equal(st32.cpu(), st64), "gradient check: float32 and float64 status differ")
+    check(errs["f32_vs_cpu_f64"] <= F32_GRAD_TOL,
+          f"gradient check: float32 gradient off by {errs['f32_vs_cpu_f64']:.3e}")
+    return ift_args, errs
+
+
+def _train_gradient_checks(s, device):
+    """The float64 IFT against finite differences on the card (see FD_TOL).
+    Returns the IFT operands of the first solve and the errors."""
+    import torch
+
+    from mcp_tpu_torch import SOLVED
+    from mcp_tpu_torch.selection import make_train_step
+
+    f64 = torch.float64
     runner = dataclasses.replace(
         s.runner, options=dataclasses.replace(s.runner.options, tol=GRAD_SOLVE_TOL))
     train_step, eval_step, _ = make_train_step(runner, s.config)
     with ift_watch() as w:
-        loss, (_, status), grads = train_step(s.model, s.trajectories, s.init, s.goals)
+        _, (_, status), grads = train_step(s.model, s.trajectories, s.init, s.goals)
     check(bool((status == SOLVED).all()), f"gradient check: status {status.tolist()}")
     check(w["launches"] > 0 and w["group_launches"] == w["launches"],
           f"gradient check: the float64 IFT's K7a launches {w['launches']}, on the group "
@@ -2204,34 +2302,6 @@ def phase_train_gradients(device):
             f"{', extrapolated' if len(fds) > 1 else ''} {fd:.9e}: |fd-ift|/|g| = "
             f"{errs[name]:.3e} (tol {FD_TOL:g}; |g| {gnorm:.4e}, solve tol {GRAD_SOLVE_TOL:g})")
         check(errs[name] <= FD_TOL, f"gradient check ({name}): {errs[name]:.3e} > {FD_TOL:g}")
-
-    # The card's float32 step (the training options) against the CPU's
-    # float64 step, both on the float64 setup's inputs and weights rounded to
-    # float32.
-    f32 = torch.float32
-    weights = [layer.weight.detach().cpu().numpy() for layer in s.model.layers]
-    biases = [layer.bias.detach().cpu().numpy() for layer in s.model.layers]
-    inputs32 = [a.to(f32) for a in (s.trajectories, s.init, s.goals)]
-    _, (_, st32), g32 = s.train_step(mlp_params_from_numpy(weights, biases, device=device,
-                                                           dtype=f32), *inputs32)
-    t0 = time.perf_counter()
-    cpu = masked_game_setup(GRAD_B, 4, FLAG_T, device="cpu", dtype=f64)
-    cpu_step, _, _ = make_train_step(dataclasses.replace(cpu.runner, options=s.runner.options),
-                                     s.config)
-    up = lambda a: a.detach().to(device="cpu", dtype=f64)
-    model64 = mlp_params_from_numpy([w.astype(np.float32) for w in weights],
-                                    [b.astype(np.float32) for b in biases], device="cpu",
-                                    dtype=f64)
-    _, (_, st64), g64 = cpu_step(model64, *(up(a) for a in inputs32))
-    scale = max(float(g.abs().max()) for g in g64)
-    errs["f32_vs_cpu_f64"] = max(float((up(a) - b).abs().max()) for a, b in zip(g32, g64)) / scale
-    log(f"  card float32 vs CPU float64 gradient of one step ({GRAD_B} lanes): status "
-        f"{st32.tolist()} vs {st64.tolist()}, max|g32-g64|/max|g64| = "
-        f"{errs['f32_vs_cpu_f64']:.3e} (tol {F32_GRAD_TOL:g}), CPU "
-        f"{time.perf_counter() - t0:.1f} s")
-    check(torch.equal(st32.cpu(), st64), "gradient check: float32 and float64 status differ")
-    check(errs["f32_vs_cpu_f64"] <= F32_GRAD_TOL,
-          f"gradient check: float32 gradient off by {errs['f32_vs_cpu_f64']:.3e}")
     return w["args"], errs
 
 
@@ -3011,8 +3081,7 @@ def phase_bench(device):
     """bench_cuda.py as a user runs it: each suite of BENCH_RUNS through
     ``mcp_tpu_torch.bench.main.main`` in this process, its last line parsed
     and held to the checks (certified, the success floor, timing_consistent,
-    each expected kernel launched); then ``python3 bench_cuda.py --quick
-    --stream 2 --spans 1`` as a child process. Returns {label: counts}."""
+    each expected kernel launched). Returns {label: counts}."""
     import io
 
     import torch
@@ -3052,19 +3121,39 @@ def phase_bench(device):
         for name in expect:
             check(counts[name] > 0, f"bench {label}: {name} never launched {counts}")
 
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "bench_cuda.py", "--quick", "--stream", "2", "--spans", "1"],
-        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
-    log(f"  python3 bench_cuda.py --quick --stream 2 --spans 1: rc {proc.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    tail = proc.stdout.strip().splitlines()
-    check(proc.returncode == 0 and tail, f"bench_cuda.py --quick failed: {proc.stderr[-2000:]}")
+    return launches
+
+
+def start_quick_bench():
+    """``python3 bench_cuda.py --quick --stream 2 --spans 1`` as a child
+    process (run beside the demo); ``finish_quick_bench`` holds its line."""
+    work = Path(rank_dir("quick"))
+    out, err = open(work / "stdout.txt", "w"), open(work / "stderr.txt", "w")
+    with out, err:
+        proc = subprocess.Popen(
+            [sys.executable, "bench_cuda.py", "--quick", "--stream", "2", "--spans", "1"],
+            cwd=Path(__file__).resolve().parent, stdout=out, stderr=err)
+    return proc, work, time.perf_counter()
+
+
+def finish_quick_bench(quick):
+    """Wait for ``start_quick_bench``'s child and hold its last line:
+    certified, batch 16."""
+    proc, work, t0 = quick
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log(f"  python3 bench_cuda.py --quick --stream 2 --spans 1 (child process, beside the "
+        f"demo): rc {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    tail = (work / "stdout.txt").read_text().strip().splitlines()
+    check(proc.returncode == 0 and tail,
+          f"bench_cuda.py --quick failed: {(work / 'stderr.txt').read_text()[-2000:]}")
     log(f"    {tail[-1]}")
     quick = json.loads(tail[-1])
     check(quick["certified"] is True and quick["batch_size"] == 16,
           "bench_cuda.py --quick: not certified")
-    return launches
 
 
 def phase_demo(device):
@@ -3419,6 +3508,533 @@ def phase_new_timing(k6, k8a, k8b):
     return kernels
 
 
+# -- the player-selection pipeline ------------------------------------------
+
+# The pipeline of the JAX package's scripts/datagen.py, train_selection.py and
+# evaluate_selection.py at their defaults' width: N=4, horizon 30, the masked
+# road game (b=40, n=1200), float32, the runner on tier "tridiag_pallas" with
+# the banded IFT and the training step's options (tightening max(auto, 0.05)
+# = 0.05 at b=40, the terminal polish). SEL_SCENARIOS scenarios from the
+# native sampler (seed 0): the first SEL_GT go to the ground truth (one
+# chunk), whose first SEL_TRAIN SOLVED examples train and the rest validate;
+# the last SEL_EVAL are held out for the evaluation sweep. The sweep is cut in
+# depth to fit the script's time limit (a batched sim step takes 4.5-6.3 s of
+# host time with an H100): the NN mode runs SEL_SIM_STEPS steps (it leaves its
+# 10-step bootstrap at step 11), the heuristic modes SEL_HEURISTIC_STEPS (the
+# second step warm-starts from the first).
+# The stages that need nothing of another run in child processes beside the
+# in-process chain (ground truth, train(), the NN mode's sweep, the subgames),
+# all started with the phase: the CPU float64 reference solve of two scenarios
+# (SEL_REF_THREADS threads), the heuristic modes' sweep with the serial
+# rollout it is held against, the real-data rollout
+# (tests/fixtures/ped/scenario1.csv, its recorded 30 steps), and the three
+# CLIs one after another. A child redraws the scenarios from the same seed.
+SEL_N, SEL_T = 4, 30
+SEL_OPTIONS = dict(linear_solver="tridiag_pallas", sensitivity_solver="tridiag",
+                   tightening_rate=0.05, polish=True)
+SEL_SCENARIOS, SEL_GT, SEL_TRAIN, SEL_EVAL = 32, 24, 16, 8
+SEL_TRAIN_CONFIG = dict(batch_size=8, epochs=2, patience=1)
+SEL_NN_MODE = ("Neural Network Partial Rank", 2)
+SEL_HEURISTIC_MODES = {"All": [1], "Nearest Neighbor": [2], "Distance Threshold": [2]}
+SEL_SIM_STEPS, SEL_HEURISTIC_STEPS = 12, 2
+# Floors, from the first run on the card: 24 of 24 ground-truth scenarios
+# SOLVED, every evaluation step SOLVED, 28 of 30 real-data steps SOLVED.
+SEL_MIN_GT = 22
+SEL_MIN_EVAL_SUCCESS = 0.95
+SEL_MIN_REAL_SUCCESS = 0.85
+# The ground truth of two scenarios on the card (float32, kernels) against
+# the port's CPU float64 solve (plain versions): the same status, and
+# max|Δ trajectory| / max|trajectory| ≤ SEL_REF_TOL (measured 2.2e-07 on the
+# card). The batched "All" rollout of held-out scenario 0 against
+# evaluate_scenario's serial one, both on the card: the same statuses and
+# masks, states within SEL_SERIAL_TOL (measured bit-equal on the card, 2.4e-7
+# on the CPU).
+SEL_REF_TOL, SEL_SERIAL_TOL = 3e-6, 1e-5
+SEL_REF_THREADS = 2
+SEL_CLI = (("datagen", "--out", "{d}/data", "--players", "2", "--horizon", "4", "--train", "4",
+            "--val", "2", "--test", "2", "--tier", "tridiag_pallas"),
+           ("train_selection", "--data", "{d}/data", "--players", "2", "--horizon", "4",
+            "--input-horizon", "2", "--epochs", "1", "--batch-size", "2", "--tier",
+            "tridiag_pallas", "--log-dir", "{d}/run"),
+           ("evaluate_selection", "--data", "{d}/data", "--players", "2", "--horizon", "4",
+            "--input-horizon", "2", "--steps", "2", "--scenarios", "2", "--model",
+            "{d}/run/best_model.pkl", "--modes", "All", "Neural Network Partial Rank",
+            "--tier", "tridiag_pallas", "--out", "{d}/eval"))
+
+
+@contextlib.contextmanager
+def record_solves(runner):
+    """While active, ``runner.solve`` keeps each call's (θ, BatchSolution)."""
+    real = runner.solve
+    calls = []
+
+    def solve(init, goals, masks, *, mask_rows=None, **kw):
+        bs = real(init, goals, masks, mask_rows=mask_rows, **kw)
+        rows = masks[:, None, :].expand(masks.shape[0], runner.N, runner.N) \
+            if mask_rows is None else mask_rows
+        calls.append((runner.pack_thetas(init, goals, rows), bs))
+        return bs
+
+    object.__setattr__(runner, "solve", solve)
+    try:
+        yield calls
+    finally:
+        object.__delattr__(runner, "solve")
+
+
+def stage_launches(name, counts, routes, Bn, n, m, ift=None):
+    """A stage's launches as the phase line prints them, held to: K7a on the
+    group route only (in the backward too, where ``ift`` is given), K2 on
+    its plan's route at (Bn, n, m), no K1, no K3."""
+    import torch
+
+    out = {"babe": counts["babe"]["qr"], "babe_routes": routes["babe"],
+           "linesearch": counts["linesearch"], "linesearch_routes": routes["linesearch"],
+           "thomas": total(counts["thomas"]), "cr": total(counts["cr"])}
+    if ift is not None:
+        out["babe_forward"] = out["babe"] - ift["launches"]
+        out["babe_backward"] = ift["launches"]
+        check(out["babe_forward"] > 0 and out["babe_backward"] > 0
+              and ift["group_launches"] == ift["launches"],
+              f"{name}: K7a not on the group route in both passes {out}")
+    check(out["babe"] > 0 and routes["babe"]["group"] == total(counts["babe"]),
+          f"{name}: K7a not launched, or launched off the group route {out}")
+    ls_route_check(name, routes["linesearch"], out["linesearch"], Bn, n, m, torch.float32)
+    check(out["thomas"] == 0 and out["cr"] == 0, f"{name}: K1 or K3 launched {out}")
+    return out
+
+
+def selection_runner(device):
+    """The phase's game and its runner on ``device`` (see SEL_N)."""
+    from mcp_tpu_torch import SolverOptions
+    from mcp_tpu_torch.selection import (
+        MaskedGameRunner, setup_road_environment, setup_trajectory_game)
+
+    game = setup_trajectory_game(environment=setup_road_environment(length=10.0), N=SEL_N)
+    return game, MaskedGameRunner.create(game, N=SEL_N, horizon=SEL_T, device=device,
+                                         options=SolverOptions(**SEL_OPTIONS))
+
+
+def selection_scenarios():
+    """The phase's scenarios, from the native sampler at seed 0."""
+    from mcp_tpu_torch.selection import generate_scenarios
+
+    return generate_scenarios(num_scenarios=SEL_SCENARIOS, num_players=SEL_N, seed=0,
+                              backend="native")
+
+
+def selection_child(kind, out_dir, device="cuda"):
+    """One stage of ``phase_selection`` in a child process (``python3 -c``),
+    its seconds, counts and results written under ``out_dir``:
+
+    * "reference": the all-ones-mask solve of the first two scenarios on
+      the CPU in float64 (the plain versions), to ``reference.npz``;
+    * "heuristics": the launch counts set to 0, ``evaluate_modes`` of the
+      held-out scenarios in SEL_HEURISTIC_MODES for SEL_HEURISTIC_STEPS, the
+      counts read; then ``evaluate_scenario`` (serial) of the first held-out
+      scenario in mode "All", to ``serial.json``;
+    * "real": the counts set to 0, ``evaluate_real_scenarios`` on
+      tests/fixtures/ped/scenario1.csv for its recorded steps, mode "All",
+      the counts read.
+
+    The counts and seconds go to ``out_dir/stage.json``."""
+    import torch
+
+    out = Path(out_dir)
+    info = {}
+    if kind == "reference":
+        torch.set_num_threads(SEL_REF_THREADS)
+        t0 = time.perf_counter()
+        _, cpu = selection_runner("cpu")
+        two = selection_scenarios()[:2]
+        ref = cpu.solve(*(torch.as_tensor(np.stack([getattr(s, k) for s in two]),
+                                          dtype=torch.float64)
+                          for k in ("initial_states", "goals")),
+                        torch.ones((2, SEL_N), dtype=torch.float64))
+        np.savez(out / "reference.npz", trajectories=ref.trajectories.numpy(),
+                 status=ref.result.status.numpy())
+        info["seconds"] = time.perf_counter() - t0
+    elif kind == "heuristics":
+        from mcp_tpu_torch.selection import evaluate_modes, evaluate_scenario
+
+        _, runner = selection_runner(device)
+        held_out = selection_scenarios()[SEL_SCENARIOS - SEL_EVAL:]
+        reset_counts()
+        t0 = time.perf_counter()
+        evaluate_modes(runner, held_out, SEL_HEURISTIC_MODES, str(out),
+                       num_sim_steps=SEL_HEURISTIC_STEPS, verbose=False)
+        torch.cuda.synchronize()
+        info.update(seconds=time.perf_counter() - t0, counts=read_counts(),
+                    routes=read_routes())
+        reset_counts()
+        t0 = time.perf_counter()
+        serial = evaluate_scenario(runner, held_out[0], "All", 1,
+                                   num_sim_steps=SEL_HEURISTIC_STEPS)
+        torch.cuda.synchronize()
+        info["serial_seconds"] = time.perf_counter() - t0
+        (out / "serial.json").write_text(json.dumps(serial))
+    elif kind == "real":
+        from mcp_tpu_torch import SolverOptions
+        from mcp_tpu_torch.selection import real_data
+
+        root = Path(__file__).resolve().parent
+        ped = real_data.load_scenario_csv(
+            str(root / "tests" / "fixtures" / "ped" / "scenario1.csv"))
+        opts = SolverOptions(**SEL_OPTIONS)
+        real_data.make_real_runner(N=SEL_N, horizon=SEL_T, device=device, options=opts)
+        reset_counts()
+        t0 = time.perf_counter()
+        real_data.evaluate_real_scenarios([ped], {"All": [1]}, str(out), N=SEL_N,
+                                          horizon=SEL_T, verbose=False, device=device,
+                                          options=opts)
+        torch.cuda.synchronize()
+        info.update(seconds=time.perf_counter() - t0, sim_steps=ped.sim_steps,
+                    counts=read_counts(), routes=read_routes())
+    else:
+        raise ValueError(f"unknown selection stage {kind!r}")
+    (out / "stage.json").write_text(json.dumps(info))
+
+
+def run_selection_clis(work, procs, out, stop):
+    """The three CLIs one after another as child processes (each added to
+    ``procs`` under ``stop``'s lock), until one fails or ``stop`` is set;
+    their return codes, seconds and last lines go to ``out``."""
+    root = Path(__file__).resolve().parent
+    for name, *args in SEL_CLI:
+        t0 = time.perf_counter()
+        with stop.lock:
+            if stop.is_set():
+                return
+            p = subprocess.Popen([sys.executable, "-m", f"mcp_tpu_torch.scripts.{name}",
+                                  *(a.format(d=work) for a in args)], cwd=root,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            procs.append(p)
+        try:
+            stdout, stderr = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate()
+        out[name] = {"rc": p.returncode, "seconds": time.perf_counter() - t0,
+                     "last": (stdout.strip().splitlines() or [""])[-1], "stderr": stderr[-2000:]}
+        if p.returncode != 0:
+            return
+
+
+def stage_start(secs, name):
+    """Set every launch count to 0 and start the clock of stage ``name``."""
+    reset_counts()
+    secs[name] = time.perf_counter()
+
+
+def stage_end(secs, name):
+    """Stop stage ``name``'s clock after a synchronize; its launch counts
+    and routes."""
+    import torch
+
+    torch.cuda.synchronize()
+    secs[name] = time.perf_counter() - secs[name]
+    return read_counts(), read_routes()
+
+
+def selection_eval_results(out_dir, modes, steps, results):
+    """Read the sweep's files of ``modes`` (run for ``steps``) in ``out_dir``
+    into ``results[(mode, param, sid)]``, each checked for its shape; the
+    mean ``analyze_result`` of each (mode, param)."""
+    from mcp_tpu_torch.analysis import analyze_result
+
+    metrics = {}
+    for mode, params in modes.items():
+        for p in params:
+            rows = []
+            for sid in range(SEL_EVAL):
+                path = Path(out_dir) / f"receding_horizon_trajectories_[{sid}]_[{mode}]_[{p}].json"
+                check(path.exists(), f"selection: no {path.name}")
+                r = results[(mode, p, sid)] = json.loads(path.read_text())
+                check(len(r["Player 1 Mask"]) == steps
+                      and len(r["Player 1 Trajectory"]) == steps + 1
+                      and np.isfinite(np.asarray(r["Player 1 Trajectory"])).all(),
+                      f"selection: malformed evaluation result {path.name}")
+                rows.append(analyze_result(r, num_players=SEL_N))
+            metrics[f"{mode} [{p}]"] = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+    return metrics
+
+
+def phase_selection(device):
+    """The player-selection pipeline through its entry points (see SEL_N).
+    In this process: ``generate_scenarios`` (native),
+    ``generate_ground_truth`` (certified by true KKT), ``train``,
+    ``load_checkpoint`` and ``evaluate_modes`` of the NN mode,
+    ``solve_subgames``. Beside them, in child processes started with the
+    phase: the CPU's float64 solve of two scenarios (held against the ground
+    truth), ``evaluate_modes`` of the heuristic modes and the serial
+    ``evaluate_scenario`` (held against its batched rollout),
+    ``evaluate_real_scenarios``, and the three CLIs. Every stage runs with
+    the launch counts set to 0 just before it and read just after; every
+    evaluation file goes through ``analyze_result``. Returns the phase's
+    stats (printed as one JSON line)."""
+    import threading
+
+    from mcp_tpu_torch import SOLVED, auto_tightening_rate
+    from mcp_tpu_torch.analysis import analyze_result
+
+    root = Path(__file__).resolve().parent
+    work = Path(rank_dir("selection"))
+    secs, launches, stats = {}, {}, {}
+    children, cli_procs, cli = {}, [], {}
+    stop = threading.Event()
+    stop.lock = threading.Lock()
+    cli_thread = threading.Thread(target=run_selection_clis,
+                                  args=(work / "cli", cli_procs, cli, stop))
+    try:
+        with stop.lock:
+            for kind in ("reference", "heuristics", "real"):
+                (work / kind).mkdir()
+                with open(work / kind / "stderr.txt", "w") as err:
+                    children[kind] = subprocess.Popen(
+                        [sys.executable, "-c",
+                         "import sys, chip_smoke; chip_smoke.selection_child(*sys.argv[1:])",
+                         kind, str(work / kind), str(device)],
+                        cwd=root, stdout=subprocess.DEVNULL, stderr=err)
+        cli_thread.start()
+
+        t0 = time.perf_counter()
+        _, runner = selection_runner(device)
+        mcp = runner.parametric_game.mcp
+        n, m = mcp.unconstrained_dimension, mcp.constrained_dimension
+        secs["game_build"] = time.perf_counter() - t0
+        check((n, m) == K2_SHAPES[1][1:] and mcp.time_structure.block_size == 40
+              and max(auto_tightening_rate(mcp), 0.05) == SEL_OPTIONS["tightening_rate"],
+              f"selection: the game's shape is {(n, m)}")
+        gt, results, metrics = _selection_stages(runner, work, device, secs, launches, stats)
+
+        done = {}
+        for kind, proc in children.items():
+            try:
+                proc.wait(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            err = (work / kind / "stderr.txt").read_text()
+            check(proc.returncode == 0, f"selection: the {kind} child failed: {err[-2000:]}")
+            done[kind] = json.loads((work / kind / "stage.json").read_text())
+        cli_thread.join()
+    except BaseException:
+        with stop.lock:
+            stop.set()
+            for proc in [*children.values(), *cli_procs]:
+                proc.kill()
+        if cli_thread.is_alive():
+            cli_thread.join()
+        raise
+
+    ref = np.load(work / "reference" / "reference.npz")
+    secs["reference (child)"] = done["reference"]["seconds"]
+    rel = float(np.abs(ref["trajectories"] - gt.trajectories[:2].double().cpu().numpy()).max()
+                / np.abs(ref["trajectories"]).max())
+    log(f"  ground truth vs the CPU float64 solve, 2 scenarios (child process): status "
+        f"{ref['status'].tolist()} vs {gt.result.status[:2].tolist()}, max|Δ|/max|traj| "
+        f"{rel:.3e} (tol {SEL_REF_TOL:g}), {secs['reference (child)']:.1f} s")
+    stats["ground_truth"]["cpu_float64_rel"] = rel
+    check(ref["status"].tolist() == gt.result.status[:2].tolist(),
+          "selection: ground-truth status differs from the CPU float64 solve")
+    check(rel <= SEL_REF_TOL, f"selection: ground truth differs from the CPU by {rel:.3e}")
+
+    h = done["heuristics"]
+    secs["evaluate_heuristics (child)"] = h["seconds"]
+    secs["serial (child)"] = h["serial_seconds"]
+    launches["evaluate_heuristics"] = stage_launches("evaluate (heuristic modes)", h["counts"],
+                                                     h["routes"], SEL_EVAL, n, m)
+    metrics.update(selection_eval_results(work / "heuristics", SEL_HEURISTIC_MODES,
+                                          SEL_HEURISTIC_STEPS, results))
+    statuses = [st for r in results.values() for st in r["Statuses"]]
+    eval_success = statuses.count(SOLVED) / len(statuses)
+    heuristic_steps = SEL_HEURISTIC_STEPS * sum(map(len, SEL_HEURISTIC_MODES.values()))
+    stats["evaluate"].update(success=eval_success, metrics=metrics,
+                             heuristic_sim_steps=heuristic_steps,
+                             heuristic_seconds_per_sim_step=h["seconds"] / heuristic_steps)
+    log(f"  evaluate_modes, heuristic modes (child process): {heuristic_steps} batched sim "
+        f"steps of {SEL_EVAL}, {h['seconds']:.1f} s; all {len(results)} files: success "
+        f"{eval_success:.4f}, metrics {json.dumps(metrics)}")
+    check(eval_success >= SEL_MIN_EVAL_SUCCESS,
+          f"selection: evaluation success {eval_success} < {SEL_MIN_EVAL_SUCCESS}")
+
+    serial = json.loads((work / "heuristics" / "serial.json").read_text())
+    batched = results[("All", 1, 0)]
+    dev = float(max(np.abs(np.asarray(serial[f"Player {i + 1} {k}"])
+                           - np.asarray(batched[f"Player {i + 1} {k}"])).max()
+                    for i in range(SEL_N) for k in ("Trajectory", "Control")))
+    stats["serial_vs_batched_max_abs"] = dev
+    log(f"  serial vs batched rollout of held-out scenario 0 (All, child process): statuses "
+        f"{serial['Statuses']} vs {batched['Statuses']}, max|Δ| {dev:.3e} (tol "
+        f"{SEL_SERIAL_TOL:g}), {h['serial_seconds']:.1f} s")
+    check(serial["Statuses"] == batched["Statuses"]
+          and serial["Player 1 Mask"] == batched["Player 1 Mask"],
+          "selection: serial and batched rollouts differ in status or mask")
+    check(dev <= SEL_SERIAL_TOL, f"selection: serial and batched states differ by {dev:.3e}")
+
+    rs = done["real"]
+    secs["real_data (child)"] = rs["seconds"]
+    launches["real_data"] = stage_launches("real data", rs["counts"], rs["routes"], 1, n, m)
+    res = json.loads((work / "real" / "trajectories_[0]_[All]_[1].json").read_text())
+    real_success = res["Statuses"].count(SOLVED) / len(res["Statuses"])
+    stats["real_data"] = {"sim_steps": rs["sim_steps"], "success": real_success,
+                          "metrics": analyze_result(res, num_players=SEL_N)}
+    log(f"  real data (scenario1.csv, {rs['sim_steps']} steps, child process): success "
+        f"{real_success:.4f}, {rs['seconds']:.1f} s")
+    check(len(res["Player 1 Trajectory"]) == rs["sim_steps"] + 1
+          and real_success >= SEL_MIN_REAL_SUCCESS, "selection: real-data rollout")
+
+    secs["cli (child)"] = {}
+    for name, *_ in SEL_CLI:
+        r = cli.get(name)
+        check(r is not None, f"selection: the CLI {name} did not run")
+        secs["cli (child)"][name] = r["seconds"]
+        log(f"  python -m mcp_tpu_torch.scripts.{name}: rc {r['rc']} in {r['seconds']:.1f} s; "
+            f"{r['last']}")
+        check(r["rc"] == 0, f"selection: {name} failed: {r['stderr']}")
+    d = work / "cli"
+    check(any((d / "data" / "train").iterdir()) and (d / "run" / "losses.json").exists()
+          and (d / "run" / "best_model.pkl").exists()
+          and json.loads((d / "eval" / "metrics.json").read_text()),
+          "selection: the CLIs wrote no data, checkpoint, losses or metrics")
+
+    stats.update(seconds=secs, launches=launches)
+    return stats
+
+
+def _selection_stages(runner, work, device, secs, launches, stats):
+    """The in-process stages of ``phase_selection``, filling ``secs``,
+    ``launches`` and ``stats``. Returns the ground truth's BatchSolution,
+    the NN mode's evaluation results by (mode, param, sid) and their
+    metrics."""
+    from mcp_tpu_torch import SOLVED
+    from mcp_tpu_torch.bench.harness import true_kkt_errors
+    from mcp_tpu_torch.selection import (
+        TrainConfig, evaluate_modes, generate_ground_truth, load_checkpoint, mask_computation,
+        solve_subgames, train)
+    from mcp_tpu_torch.selection.evaluate import model_callable
+
+    mcp = runner.parametric_game.mcp
+    n, m = mcp.unconstrained_dimension, mcp.constrained_dimension
+
+    t0 = time.perf_counter()
+    scenarios = selection_scenarios()
+    secs["scenarios"] = time.perf_counter() - t0
+    pos = np.stack([s.initial_states[:, :2] for s in scenarios])
+    gls = np.stack([s.goals for s in scenarios])
+    sep = min(float((np.linalg.norm(p[:, :, None] - p[:, None], axis=-1)
+                     + 1e9 * np.eye(SEL_N)).min()) for p in (pos, gls))
+    log(f"  scenarios: {len(scenarios)} of {SEL_N} players, least separation {sep:.4f}")
+    check(len(scenarios) == SEL_SCENARIOS and pos.shape == (SEL_SCENARIOS, SEL_N, 2)
+          and all(s.initial_states.shape == (SEL_N, 4) for s in scenarios) and sep >= 1.0
+          and float(np.abs(pos).max()) <= 4.0, "selection: scenarios malformed")
+
+    stage_start(secs, "ground_truth")
+    with record_solves(runner) as calls:
+        examples = generate_ground_truth(runner, scenarios[:SEL_GT], str(work / "gt"),
+                                         batch_size=SEL_GT)
+    counts, routes = stage_end(secs, "ground_truth")
+    launches["ground_truth"] = stage_launches("ground truth", counts, routes, SEL_GT, n, m)
+    check(len(calls) == 1, f"selection: ground truth took {len(calls)} solves, not one chunk")
+    theta, gt = calls[0]
+    tk = true_kkt_errors(mcp, gt.result, theta)
+    solved = gt.result.status == SOLVED
+    tk_max = float(tk[solved].max()) if bool(solved.any()) else float("nan")
+    lanes = np.flatnonzero(solved.cpu().numpy())
+    stats["ground_truth"] = {"solved": len(examples), "of": SEL_GT,
+                             "outer_iters": gt.result.outer_iters.tolist(),
+                             "true_kkt_max_solved": tk_max}
+    log(f"  ground truth: {len(examples)} of {SEL_GT} SOLVED, iterations "
+        f"{gt.result.outer_iters.tolist()}, max true KKT of a SOLVED lane {tk_max:.3e} "
+        f"({secs['ground_truth']:.1f} s)")
+    check(len(examples) >= SEL_MIN_GT, f"selection: {len(examples)} SOLVED < {SEL_MIN_GT}")
+    check(not bool((solved & (tk > runner.options.tol)).any()),
+          "selection: a SOLVED ground-truth lane has true KKT above tol")
+    check(sorted(p.name for p in (work / "gt").iterdir())
+          == sorted(f"simulation_results_{i}.json" for i in lanes),
+          "selection: the ground-truth files are not the SOLVED lanes")
+    trajs = gt.trajectories.cpu().numpy()
+    check(all(np.array_equal(ex.trajectories, trajs[i]) for ex, i in zip(examples, lanes)),
+          "selection: a written example is not its lane's plan")
+
+    config = TrainConfig(num_players=SEL_N, horizon=SEL_T, **SEL_TRAIN_CONFIG)
+    train_ex, val_ex = examples[:SEL_TRAIN], examples[SEL_TRAIN:]
+    stage_start(secs, "train")
+    with ift_watch() as ift:
+        _, history = train(runner, train_ex, val_ex, config=config,
+                           log_dir=str(work / "run"), verbose=False)
+    counts, routes = stage_end(secs, "train")
+    launches["train"] = stage_launches("train", counts, routes, config.batch_size, n, m, ift)
+    steps = len(history["train_loss"]) * -(-len(train_ex) // config.batch_size)
+    stats["train"] = {"history": history, "steps": steps,
+                      "seconds_per_step": secs["train"] / steps}
+    log(f"  train(): {len(train_ex)} examples, {len(val_ex)} validation, history {history}, "
+        f"{secs['train']:.1f} s ({steps} steps and {len(history['val_loss'])} validations)")
+    check(all(math.isfinite(v) for vs in history.values() for v in vs)
+          and len(history["train_loss"]) >= 1, "selection: non-finite training history")
+    for name in ("best_model.pkl", "trained_model.pkl", "losses.json"):
+        check((work / "run" / name).exists(), f"selection: train() wrote no {name}")
+
+    held_out = scenarios[SEL_SCENARIOS - SEL_EVAL:]
+    best, payload = load_checkpoint(str(work / "run" / "best_model.pkl"), device=device)
+    check(payload["config"]["num_players"] == SEL_N, "selection: checkpoint config")
+    nn_modes = {SEL_NN_MODE[0]: [SEL_NN_MODE[1]]}
+    stage_start(secs, "evaluate_nn")
+    evaluate_modes(runner, held_out, nn_modes, str(work / "eval"),
+                   num_sim_steps=SEL_SIM_STEPS, model=best, verbose=False)
+    counts, routes = stage_end(secs, "evaluate_nn")
+    launches["evaluate_nn"] = stage_launches("evaluate (NN mode)", counts, routes, SEL_EVAL,
+                                             n, m)
+    results = {}
+    metrics = selection_eval_results(work / "eval", nn_modes, SEL_SIM_STEPS, results)
+    stats["evaluate"] = {"nn_sim_steps": SEL_SIM_STEPS,
+                         "nn_seconds_per_sim_step": secs["evaluate_nn"] / SEL_SIM_STEPS}
+    log(f"  evaluate_modes, NN mode: {SEL_SIM_STEPS} batched sim steps of {SEL_EVAL}, "
+        f"{secs['evaluate_nn']:.1f} s")
+
+    # The NN mode after its bootstrap: each mask is the model's own top pick
+    # on the recorded history, and some differ from the bootstrap heuristic's.
+    scorer = model_callable(best)
+    differ = 0
+    for sid in range(SEL_EVAL):
+        r = results[(*SEL_NN_MODE, sid)]
+        hist = np.asarray([r[f"Player {i + 1} Trajectory"] for i in range(SEL_N)])
+        for step in range(11, SEL_SIM_STEPS + 1):
+            window = hist[:, step - config.input_horizon : step]
+            traj = [window[i].reshape(-1) for i in range(SEL_N)]
+            inp = np.concatenate([window[i, :, :2].reshape(-1) for i in range(SEL_N)])
+            mine = mask_computation(inp, traj, [], SEL_NN_MODE[0], step, SEL_NN_MODE[1],
+                                    model=scorer)
+            boot = mask_computation(None, traj, [], "Nearest Neighbor", step, SEL_NN_MODE[1])
+            check(r["Player 1 Mask"][step - 1] == [1.0, *mine.tolist()],
+                  f"selection: NN mask of scenario {sid} at step {step} is not the model's")
+            differ += int(not np.array_equal(mine, boot))
+    stats["evaluate"]["nn_masks_off_bootstrap"] = differ
+    log(f"  NN mode: {differ} of {SEL_EVAL * (SEL_SIM_STEPS - 10)} masks after step 10 "
+        "differ from the bootstrap heuristic's")
+    check(differ > 0, "selection: the NN mode never left its bootstrap heuristic")
+
+    s0 = held_out[0]
+    scale = np.array([0.75, 0.75, 1.0, 1.0])  # inside the default 7 m arena
+    stage_start(secs, "subgame")
+    sub = solve_subgames(s0.initial_states * scale, s0.goals * 0.75, np.array([1, 1, 0, 0]),
+                         device=device, options=runner.options)
+    counts, _ = stage_end(secs, "subgame")
+    launches["subgame"] = {k: total(v) for k, v in counts.items()}
+    log(f"  solve_subgames (horizon 3, 10 steps, mask [1, 1, 0, 0]): {secs['subgame']:.1f} s, "
+        f"launches {launches['subgame']}")
+    check(launches["subgame"]["thomas"] > 0 and launches["subgame"]["linesearch"] > 0,
+          "selection: the subgames launched no K1 or no K2")
+    for i in range(SEL_N):
+        tr = np.asarray(sub[f"Player {i + 1} Trajectory"])
+        check(tr.shape == (11, 4) and np.isfinite(tr).all()
+              and np.asarray(sub[f"Player {i + 1} Control"]).shape == (10, 2)
+              and np.allclose(tr[0], s0.initial_states[i] * scale, atol=1e-5),
+              f"selection: subgame player {i + 1}")
+    check(sub["Mask"] == [1, 1, 0, 0], "selection: subgame mask")
+    return gt, results, metrics
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3532,7 +4148,14 @@ def main() -> int:
     k6_args, k6_err = phase_k6(real_bands, n4, device)
     phase("30b: bench_cuda.py suites and the receding-horizon demo")
     bench_launches = phase_bench(device)
-    bench_launches["receding-horizon demo"] = phase_demo(device)
+    quick = start_quick_bench()
+    try:
+        bench_launches["receding-horizon demo"] = phase_demo(device)
+    except BaseException:
+        quick[0].kill()
+        quick[0].wait()
+        raise
+    finish_quick_bench(quick)
     phase(f"31: horizon-sharded lane change on 2 ranks (dp=1 x horizon=2, B={HZ_B}), the "
           "SPIKE gradient and batch sharding")
     from mcp_tpu_torch.kernels.thomas_multi import multi_plan
@@ -3550,6 +4173,15 @@ def main() -> int:
     kernels += phase_new_timing((k6_args, k6_err, k6_launches, k6_device),
                                 (k8a_system, k8a_err, k8a_launches),
                                 (schur, k8b_err, k8b_launches, k8b_device))
+    phase(f"36: the player-selection pipeline (N={SEL_N}, horizon {SEL_T}, tridiag_pallas)")
+    selection = phase_selection(device)
+    log("  selection pipeline: " + json.dumps(selection))
+    for entry in kernels:
+        # What each stage of the selection pipeline launched of K7a and K2.
+        key = {"babe_thomas_solve": "babe", "linesearch_update": "linesearch"}.get(entry["name"])
+        if key:
+            entry["selection_launches"] = {st: c[key] for st, c in selection["launches"].items()
+                                           if key in c}
     for entry in kernels:
         # What the bench suites and the demo (phase 30b) launched of it.
         runs = {label: c[entry["name"]] for label, c in bench_launches.items()

@@ -12,7 +12,11 @@ function theorem (``diff.py``) and the solver-in-the-loop training step
 (``trajectories/strategies.py``, the lane-change demos); the benchmark
 harness and entry point (``bench/harness.py``, ``bench/main.py``, run as
 ``bench_cuda.py``) with the double-word QP refinement (``utils/twofloat.py``,
-``bench/qp_dw.py``); and, over ``torch.distributed`` ranks, batch-sharded
+``bench/qp_dw.py``); the player-selection pipeline (``selection/``:
+scenarios and ground truth, the training loop with checkpoints, the
+heuristic baselines, the closed-loop evaluation, subgames and real data;
+the C++ scenario sampler in ``native/``; ``analysis/metrics.py``; the CLIs
+in ``scripts/``); and, over ``torch.distributed`` ranks, batch-sharded
 solves and the horizon-sharded SPIKE solve (``parallel/mesh.py``,
 ``parallel/horizon.py``). Linear-solver tiers: every banded tier of the JAX
 package ("tridiag", "tridiag_cr", "tridiag_auto" and each
@@ -29,7 +33,8 @@ QR (K4b/K4c), the multi-right-hand-side sweep of the SPIKE stage (K6), the
 two-way sweep (K7a), the single-system QR with a separate right-hand side
 (K8a) and the compact-WY blocked QR (K8b). On CPU tensors each runs its
 plain PyTorch version. The JAX package's gmres tier, tensor-parallel and
-routed backends and the data layer are not ported yet (ROADMAP Queue 1).
+routed backends, and ``analysis/``'s plots and experiments are not ported
+yet (ROADMAP Queue 1).
 
 Entry points that create state take ``device=`` (default ``"cuda"``, which
 raises on a machine without a GPU); solves follow the device of θ.

@@ -490,6 +490,32 @@ int dispatch(int fam, int refine, const void* diag, const void* lower, const voi
 
 }  // namespace
 
+// The build compiles this file as two translation units, once with each
+// -DMCP_PART=k, and links them into one library (kernels/_build.py, PARTS):
+// part 0 holds the float32 instances and the entry points, part 1 the
+// float64 instances. Without MCP_PART one unit holds everything.
+#define MCP_CR_PART_PARAMS                                                                 \
+  int fam, int refine, const void *diag, const void *lower, const void *upper,             \
+      const void *rhs, void *work, void *x, int B, int T, int b, long long lower_bs,        \
+      long long upper_bs, const int *plan, void *stream
+#define MCP_CR_PART(k, DT)                                                                  \
+  extern "C" int mcp_cr_part##k(MCP_CR_PART_PARAMS) {                                       \
+    return dispatch<DT>(fam, refine, diag, lower, upper, rhs, work, x, B, T, b, lower_bs,   \
+                        upper_bs, plan, static_cast<cudaStream_t>(stream));                 \
+  }
+
+extern "C" {
+int mcp_cr_part0(MCP_CR_PART_PARAMS);
+int mcp_cr_part1(MCP_CR_PART_PARAMS);
+}
+
+#if !defined(MCP_PART) || MCP_PART == 1
+MCP_CR_PART(1, double)
+#endif
+
+#if !defined(MCP_PART) || MCP_PART == 0
+MCP_CR_PART(0, float)
+
 // Elements of the workspace buffer mcp_cr_solve needs for (B, T, b).
 extern "C" long long mcp_cr_workspace(int B, int T, int b) { return workspace_elems(B, T, b); }
 
@@ -506,10 +532,8 @@ extern "C" int mcp_cr_solve(int dtype, int fam, int refine, const void* diag, co
                             const void* upper, const void* rhs, void* work, void* x, int B,
                             int T, int b, long long lower_bs, long long upper_bs,
                             const int* plan, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(fam, refine, diag, lower, upper, rhs, work, x, B, T, b, lower_bs,
-                           upper_bs, plan, s);
-  return dispatch<double>(fam, refine, diag, lower, upper, rhs, work, x, B, T, b, lower_bs,
-                          upper_bs, plan, s);
+  return (dtype == 0 ? mcp_cr_part0 : mcp_cr_part1)(fam, refine, diag, lower, upper, rhs, work,
+                                                    x, B, T, b, lower_bs, upper_bs, plan,
+                                                    stream);
 }
+#endif

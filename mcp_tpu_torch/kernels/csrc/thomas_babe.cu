@@ -468,24 +468,29 @@ int dispatch_group(const Args& a, int bm) {
   }
 }
 
-template <typename T>
+// The instances of one part (see MCP_PART below): the pivoted family (gjp,
+// gjpr) or the others (qr, gj) in one dtype.
+template <typename T, bool PIVOTED>
 int dispatch(int fam, int refine, const Args& a, int route, int bm) {
-  if (route == 0) {
+  if constexpr (PIVOTED) {
+    if (route == 0) return launch_block<T, kGJP>(a, refine);
+    if (route != 1 || refine > 1) return (int)cudaErrorInvalidValue;
+    return refine ? dispatch_group<T, kGJP, true>(a, bm)
+                  : dispatch_group<T, kGJP, false>(a, bm);
+  } else {
+    if (route == 0) {
+      switch (fam) {
+        case kQR: return launch_block<T, kQR>(a, 0);
+        case kGJ: return launch_block<T, kGJ>(a, 0);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+    if (route != 1 || refine != 0) return (int)cudaErrorInvalidValue;
     switch (fam) {
-      case kQR: return launch_block<T, kQR>(a, 0);
-      case kGJ: return launch_block<T, kGJ>(a, 0);
-      case kGJP: return launch_block<T, kGJP>(a, refine);
+      case kQR: return dispatch_group<T, kQR, false>(a, bm);
+      case kGJ: return dispatch_group<T, kGJ, false>(a, bm);
       default: return (int)cudaErrorInvalidValue;
     }
-  }
-  if (route != 1 || refine > 1 || (refine && fam != kGJP)) return (int)cudaErrorInvalidValue;
-  switch (fam) {
-    case kQR: return dispatch_group<T, kQR, false>(a, bm);
-    case kGJ: return dispatch_group<T, kGJ, false>(a, bm);
-    case kGJP:
-      return refine ? dispatch_group<T, kGJP, true>(a, bm)
-                    : dispatch_group<T, kGJP, false>(a, bm);
-    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -503,13 +508,52 @@ int dispatch(int fam, int refine, const Args& a, int route, int bm) {
 // memory of either route is derived here from b, the fact and the dtype. A
 // plan that disagrees with the kernels' own limits returns
 // cudaErrorInvalidValue and launches nothing. Returns cudaGetLastError().
+//
+// The build compiles this file as four translation units, once with
+// each -DMCP_PART=k, and links them into one library (kernels/_build.py,
+// PARTS): part 2 * dtype + (fam == gjp) holds that dtype's pivoted or other
+// instances, part 0 also the entry point. Without MCP_PART one unit holds
+// everything.
+#define MCP_BABE_PART_PARAMS                                                            \
+  int fam, int refine, const void *diag, const void *lower, const void *upper,          \
+      const void *rhs, void *cd, void *x, int B, int nt, int b, long long lower_bstride, \
+      long long upper_bstride, int route, int bm, void *stream
+#define MCP_BABE_PART(k, T, PIVOTED)                                                     \
+  extern "C" int mcp_babe_part##k(MCP_BABE_PART_PARAMS) {                                \
+    const Args a{diag, lower, upper, rhs, cd, x, B, nt, b, lower_bstride, upper_bstride, \
+                 static_cast<cudaStream_t>(stream)};                                     \
+    return dispatch<T, PIVOTED>(fam, refine, a, route, bm);                              \
+  }
+
+extern "C" {
+int mcp_babe_part0(MCP_BABE_PART_PARAMS);
+int mcp_babe_part1(MCP_BABE_PART_PARAMS);
+int mcp_babe_part2(MCP_BABE_PART_PARAMS);
+int mcp_babe_part3(MCP_BABE_PART_PARAMS);
+}
+
+#if !defined(MCP_PART) || MCP_PART == 0
+MCP_BABE_PART(0, float, false)
+#endif
+#if !defined(MCP_PART) || MCP_PART == 1
+MCP_BABE_PART(1, float, true)
+#endif
+#if !defined(MCP_PART) || MCP_PART == 2
+MCP_BABE_PART(2, double, false)
+#endif
+#if !defined(MCP_PART) || MCP_PART == 3
+MCP_BABE_PART(3, double, true)
+#endif
+
+#if !defined(MCP_PART) || MCP_PART == 0
 extern "C" int mcp_babe_solve(int dtype, int fam, int refine, const void* diag,
                               const void* lower, const void* upper, const void* rhs,
                               void* cd, void* x, int B, int nt, int b,
                               long long lower_bstride, long long upper_bstride, int route,
                               int bm, void* stream) {
-  const Args a{diag, lower, upper, rhs, cd, x, B, nt, b, lower_bstride, upper_bstride,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch<float>(fam, refine, a, route, bm);
-  return dispatch<double>(fam, refine, a, route, bm);
+  auto part = dtype == 0 ? (fam == solve_aug::kGJP ? mcp_babe_part1 : mcp_babe_part0)
+                         : (fam == solve_aug::kGJP ? mcp_babe_part3 : mcp_babe_part2);
+  return part(fam, refine, diag, lower, upper, rhs, cd, x, B, nt, b, lower_bstride,
+              upper_bstride, route, bm, stream);
 }
+#endif

@@ -1,18 +1,17 @@
-"""Masked-game solving driver: batched open-loop solves and closed-loop
-stepping of the masked N-player games (the JAX package's
-``selection/runner.py:38-176``). Whole scenario batches solve in one batched
-call. ``solve`` is differentiable in the masks (and every other θ entry)
-through ``solve_batch``'s implicit-function-theorem rule.
-
-``generate_ground_truth`` needs the scenario data layer and is not ported
-yet (ROADMAP Queue 1 item 4).
+"""Masked-game solving drivers: batched open-loop solves, closed-loop
+stepping and ground-truth generation for the masked N-player games (the
+JAX package's ``selection/runner.py``). Whole scenario batches solve in one
+batched call. ``solve`` is differentiable in the masks (and every other θ
+entry) through ``solve_batch``'s implicit-function-theorem rule.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+import os
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -21,7 +20,9 @@ from ..parallel.batch import solve_batch
 from ..solver import SolverOptions
 from ..trajectories import TrajectoryGame
 from ..trajectories.strategies import cold_start_primal
-from ..types import SolveResult
+from .._device import resolve_device
+from ..types import SOLVED, SolveResult
+from .data import Example, Scenario, save_example
 from .games import build_masked_parametric_game
 
 
@@ -42,6 +43,7 @@ class MaskedGameRunner:
     horizon: int
     # Game MCPs have Hy ≡ 0, so the n×n "schur" Newton tier is exact.
     options: SolverOptions = SolverOptions(linear_solver="schur")
+    device: torch.device = torch.device("cuda")  # where the game's constants live
 
     @staticmethod
     def create(
@@ -51,6 +53,7 @@ class MaskedGameRunner:
         """Build the game's MCP on ``device`` (default ``"cuda"``, which
         raises without a GPU). Default options: the banded tier "tridiag"
         when the builder validated the time structure, else "schur"."""
+        device = resolve_device(device)
         pg = build_masked_parametric_game(game, N=N, horizon=horizon, device=device)
         if options is None:
             if pg.mcp.time_structure is not None:
@@ -58,7 +61,8 @@ class MaskedGameRunner:
             else:
                 options = SolverOptions(linear_solver="schur", sensitivity_solver="condensed")
         return MaskedGameRunner(
-            game=game, parametric_game=pg, N=N, horizon=horizon, options=options
+            game=game, parametric_game=pg, N=N, horizon=horizon, options=options,
+            device=device,
         )
 
     def pack_thetas(
@@ -128,3 +132,44 @@ class MaskedGameRunner:
         the next joint state and its control at t=0 as the applied control."""
         bs = self.solve(initial_states, goals, masks, mask_rows=mask_rows, x0=x0, y0=y0)
         return bs.trajectories[:, :, 1, :], bs.controls[:, :, 0, :], bs
+
+
+def generate_ground_truth(
+    runner: MaskedGameRunner,
+    scenarios: Sequence[Scenario],
+    out_dir: str,
+    *,
+    ego_index: int = 0,
+    batch_size: int = 64,
+) -> list[Example]:
+    """Replay scenarios through the all-ones-mask game in float32, in chunks
+    of ``batch_size`` (one batched solve each, on the runner's device), and
+    write each SOLVED scenario's open-loop plan as
+    ``simulation_results_{k}.json`` (k its index in ``scenarios``);
+    unconverged scenarios are skipped. Returns the examples written."""
+    os.makedirs(out_dir, exist_ok=True)
+    examples = []
+    for start in range(0, len(scenarios), batch_size):
+        chunk = scenarios[start : start + batch_size]
+        init, goals = (
+            torch.as_tensor(np.stack([getattr(s, k) for s in chunk])).to(
+                device=runner.device, dtype=torch.float32)
+            for k in ("initial_states", "goals")
+        )
+        masks = torch.ones((len(chunk), runner.N), dtype=torch.float32, device=runner.device)
+        bs = runner.solve(init, goals, masks)
+        trajs = bs.trajectories.cpu().numpy()
+        statuses = bs.result.status.cpu().numpy()
+        for i, scen in enumerate(chunk):
+            if statuses[i] != SOLVED:
+                continue
+            ex = Example(
+                trajectories=trajs[i],
+                ego_index=ego_index,
+                initial_states=np.asarray(scen.initial_states),
+                goals=np.asarray(scen.goals),
+                mask=np.ones(runner.N),
+            )
+            save_example(os.path.join(out_dir, f"simulation_results_{start + i}.json"), ex)
+            examples.append(ex)
+    return examples

@@ -262,3 +262,48 @@ def test_mesh_entry_points_default_to_cuda(tmp_path):
                                    rtol=0, atol=1e-12)
     finally:
         dist.destroy_process_group()
+
+
+def test_selection_pipeline_modules_are_scanned():
+    """The modules of the player-selection pipeline, the scenario sampler,
+    the metrics and the CLIs are among the files the import scan covers."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("selection/data.py", "selection/baselines.py", "selection/evaluate.py",
+                "selection/subgame.py", "selection/real_data.py", "selection/runner.py",
+                "native/__init__.py", "analysis/metrics.py", "scripts/__init__.py",
+                "scripts/datagen.py", "scripts/train_selection.py",
+                "scripts/evaluate_selection.py"):
+        assert f"mcp_tpu_torch/{rel}" in names
+
+
+def test_selection_entry_points_default_to_cuda_and_raise_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    import numpy as np
+
+    from mcp_tpu_torch.selection import (
+        Example,
+        MaskMLP,
+        TrainConfig,
+        batch_arrays,
+        load_checkpoint,
+        real_data,
+        save_checkpoint,
+        solve_subgames,
+    )
+    from mcp_tpu_torch.scripts import road_runner
+
+    ex = Example(trajectories=np.zeros((2, 4, 4)), ego_index=0, initial_states=np.zeros((2, 4)),
+                 goals=np.zeros((2, 2)), mask=np.ones(2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        batch_arrays([ex])
+    assert batch_arrays([ex], device="cpu")[0].dtype == torch.float32
+    save_checkpoint(str(tmp_path / "m.pkl"), MaskMLP(8, 2, device="cpu"), TrainConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_checkpoint(str(tmp_path / "m.pkl"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        solve_subgames(np.zeros((2, 4)), np.ones((2, 2)), np.array([1, 0]))
+    with pytest.raises(RuntimeError, match="cuda"):
+        real_data.make_real_runner(N=2, horizon=3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        road_runner(2, 3, length=10.0, tier="tridiag", device="cuda")
