@@ -36,6 +36,17 @@ before it and read just after:
   * the one-instance entry points on tier "schur_pallas" (``solve_game``
     on the lane change, ``solve`` on the QP, float32; the single-system QR
     K8a), and the compact-WY QR K8b beside K4b on the QP Schur systems;
+  * the solver options on the QP suite (B=256, n=m=100, float32): tier
+    "gmres" under "ip" with the fused K2 linesearch and under "mehrotra"
+    (its factored solver), beside "schur_pallas_gj" (K4a) on the same θ,
+    and "schur_pallas_gj" at each ``matmul_precision`` ("highest", "high",
+    "default"), the precision flags restored after the phase;
+  * in the 2-rank spawn of the horizon paths, the tensor-parallel Newton
+    backend (``solve_single_tp``: one lane-change instance, the condensed
+    450-wide system padded to 512 in panels of 64, K2) against the one-card
+    "condensed" solve, and ``solve_routed`` of two buckets, one rank each
+    (the lane-change headline batch on "tridiag_pallas", K1 and K2; the QP
+    batch on "schur_pallas_gj", K4a) against ``solve_batch``;
   * the benchmark entry point ``bench_cuda.py`` (``bench.main.main``) at
     batch 256: the streamed lane change and QP (4 batches x 2 spans; K1
     and K2, K4a), the warm sweep (10 steps; K1, K2) and the double-word QP
@@ -2881,8 +2892,10 @@ def phase_horizon_paths(device, out_dir, k6_route):
     (T=10, B=256, float32) through solve_batch_horizon_sharded on a dp=1 x
     horizon=2 mesh, every K6 launch of a rank on ``k6_route`` (its plan's);
     the gradient of Σx² through horizon_sharded_solve_fn at T=16 (two lanes,
-    float64); solve_batch_sharded of 16 lane-change lanes. Each is held
-    against the same solve on one card in this process."""
+    float64); solve_batch_sharded of 16 lane-change lanes; solve_single_tp of
+    one lane-change instance and solve_routed of two buckets (``tp_routed``).
+    Each is held against the same solve on one card in this process.
+    Returns (K6's launches, the tp and routed launches)."""
     import torch
 
     from mcp_tpu_torch import SOLVED, SolverOptions, auto_tightening_rate, solve_batch
@@ -2897,22 +2910,27 @@ def phase_horizon_paths(device, out_dir, k6_route):
     thetas = lc.generate_parameter_batch(gen, HZ_B, bench, dtype=torch.float32, device=device)
     grad_opts = dict(linear_solver="tridiag", sensitivity_solver="tridiag", tol=1e-6)
     t16 = np.asarray(T16_THETAS)
+    tp_routed = tp_routed_tasks(thetas, options, device)
     tasks = [
         dict(kind="batch", name="batch", thetas=thetas.cpu().numpy(), options=options,
              horizon=10, dp=1, hz=2, warm=HZ_WARM),
         dict(kind="grad", name="grad", thetas=t16, options=grad_opts, horizon=16),
         dict(kind="batch_sharded", name="batch_sharded", thetas=thetas[:16].cpu().numpy(),
              options=options, horizon=10),
+        *tp_routed,
     ]
     t0 = time.perf_counter()
     ranks = worker.spawn(2, tasks, out_dir, device=device, threads=2,
                          timeout_s=RANK_TIMEOUT_S)
     log(f"  2 ranks ran in {time.perf_counter() - t0:.1f} s")
-    for name in ("batch", "grad", "batch_sharded"):
+    for name in ("batch", "grad", "batch_sharded", "tp"):
         for k, v in ranks[0][name].items():
             if isinstance(v, np.ndarray):
                 check(np.array_equal(ranks[1][name][k], v, equal_nan=True),
                       f"horizon {name}: ranks differ in {k}")
+    for r0, r1 in zip(ranks[0]["routed"]["results"], ranks[1]["routed"]["results"]):
+        for k, v in r0.items():
+            check(np.array_equal(r1[k], v, equal_nan=True), f"routed: ranks differ in {k}")
 
     # The horizon batch.
     got = ranks[0]["batch"]
@@ -2974,7 +2992,129 @@ def phase_horizon_paths(device, out_dir, k6_route):
     check(np.array_equal(bs["status"], st_one), "solve_batch_sharded: status differs")
     check(bs["num_solved"] == int((bs["status"] == SOLVED).sum()),
           "solve_batch_sharded: wrong solved count")
-    return launches[0]["multi"]
+    return launches[0]["multi"], check_tp_routed(ranks, mcp, thetas, tp_routed, device)
+
+
+def solver_option_launches(name, option_launches, rank_launches):
+    """{run: launches} of the kernels line's entry ``name`` (K1, K2 or K4a)
+    in phase 30c's runs and in the tp and routed ranks (rank 0 solves the
+    lane-change bucket, rank 1 the QP bucket)."""
+    key = {"thomas_solve": "thomas", "linesearch_update": "linesearch", "gj_solve": "gj"}.get(name)
+    if key is None:
+        return {}
+    runs = {label: c[f"{key}_launches"] for label, c in option_launches.items()
+            if c.get(f"{key}_launches")}
+    for r, c in enumerate(rank_launches["tp"]):
+        if c[key]:
+            runs[f"solve_single_tp rank {r}"] = c[key]
+    for r, c in enumerate(rank_launches["routed"]):
+        if c[key]:
+            runs[f"solve_routed rank {r}"] = c[key]
+    return runs
+
+
+TP_PANEL = 64  # the condensed lane-change system: 450 wide, 512 on 2 ranks
+ROUTED_X_REL = 1e-5  # routed buckets against solve_batch, relative to max|x|
+
+
+def tp_routed_tasks(thetas, options, device, seed=2034):
+    """The rank tasks of the tensor-parallel and routed solves: one
+    lane-change instance (lane 0 of ``thetas``) on "condensed" with the
+    fused K2 linesearch, and the buckets (the lane-change headline batch on
+    "tridiag_pallas"; a QP batch of B on "schur_pallas_gj" with the suite's
+    options)."""
+    import torch
+
+    from mcp_tpu_torch import auto_tightening_rate
+    from mcp_tpu_torch.bench import qp
+
+    qp_mcp = qp.generate_test_problem(num_primals=QP_N, num_inequalities=QP_N,
+                                      device=device).mcp
+    qp_th = qp.generate_parameter_batch(torch.Generator().manual_seed(seed), B,
+                                        num_primals=QP_N, num_inequalities=QP_N, device=device)
+    qp_opts = dict(QP_OPTIONS, tightening_rate=auto_tightening_rate(qp_mcp))
+    return [
+        dict(kind="tp", name="tp", problem=dict(kind="lane_change", horizon=10),
+             theta=thetas[0].cpu().numpy(), panel=TP_PANEL,
+             options=dict(options, linear_solver="condensed", fused_linesearch=True)),
+        dict(kind="routed", name="routed", buckets=[
+            dict(problem=dict(kind="lane_change", horizon=10), thetas=thetas.cpu().numpy(),
+                 options=options),
+            dict(problem=dict(kind="qp", num_primals=QP_N, num_inequalities=QP_N),
+                 thetas=qp_th.cpu().numpy(), options=qp_opts),
+        ]),
+    ]
+
+
+def check_tp_routed(ranks, mcp, thetas, tp_routed, device):
+    """Hold the ranks' tp and routed results against one card in this
+    process: the tp instance against ``solve`` on "condensed" (status equal,
+    both certified by the true KKT, max|Δx| printed: float32 parity is by
+    status and certified KKT); each routed bucket against ``solve_batch`` of
+    its θ (status and outer iterations equal, x within ROUTED_X_REL of
+    max|x|, every SOLVED lane certified). K2 must launch in the tp ranks,
+    K1 and K2 in the lane-change bucket's rank, K4a in the QP bucket's."""
+    import torch
+
+    from mcp_tpu_torch import SOLVED, SolverOptions, solve, solve_batch
+    from mcp_tpu_torch.bench import horizon as worker
+    from mcp_tpu_torch.bench.harness import true_kkt_errors
+
+    tasks = {t["name"]: t for t in tp_routed}
+    tp = ranks[0]["tp"]
+    tp_opts = SolverOptions(**tasks["tp"]["options"])
+    th0 = thetas[0]
+    one = solve(mcp, th0, options=tp_opts)
+    torch.cuda.synchronize()
+    iterate = lambda got: SimpleNamespace(
+        **{k: torch.as_tensor(got[k], device=device) for k in ("x", "y", "s")})
+    tk_tp = float(true_kkt_errors(mcp, iterate(tp), th0))
+    tk_one = float(true_kkt_errors(mcp, one, th0))
+    dx = float(np.abs(tp["x"] - one.x.cpu().numpy()).max())
+    tp_stats = dict(status=int(tp["status"]), one_card_status=int(one.status),
+                    outer_iters=int(tp["outer_iters"]), one_card_outer_iters=int(one.outer_iters),
+                    true_kkt=tk_tp, one_card_true_kkt=tk_one, max_abs_dx=dx,
+                    max_abs_x=float(np.abs(tp["x"]).max()), seconds=tp["seconds"],
+                    launches_per_rank=[r["tp"]["launches"] for r in ranks])
+    log("  solve_single_tp (2 ranks, lane change, condensed 450 -> 512, panel 64): "
+        + json.dumps(tp_stats))
+    check(tp_stats["status"] == tp_stats["one_card_status"] == SOLVED,
+          "solve_single_tp: status differs from one card or not SOLVED")
+    check(tk_tp <= tp_opts.tol and tk_one <= tp_opts.tol,
+          "solve_single_tp: a solution is not certified by the true KKT")
+    check(all(r["tp"]["launches"]["linesearch"] > 0 for r in ranks),
+          "solve_single_tp: K2 not launched in a rank")
+
+    routed = ranks[0]["routed"]
+    counts = [r["routed"]["launches"] for r in ranks]
+    names = ("lane change (tridiag_pallas)", "QP (schur_pallas_gj)")
+    for name, got, bucket in zip(names, routed["results"], tasks["routed"]["buckets"]):
+        b = worker._build(bucket["problem"], device)
+        th = torch.as_tensor(bucket["thetas"], device=device)
+        ref = solve_batch(b, th, options=SolverOptions(**bucket["options"]))
+        torch.cuda.synchronize()
+        tk = true_kkt_errors(b, iterate(got), th)
+        solved = torch.as_tensor(got["status"], device=device) == SOLVED
+        tol = bucket["options"]["tol"]
+        rel = float(np.abs(got["x"] - ref.x.cpu().numpy()).max() / np.abs(got["x"]).max())
+        stats = dict(success_rate=float(solved.double().mean()),
+                     certified=int((solved & (tk <= tol)).sum()),
+                     median_outer_iters=float(np.median(got["outer_iters"])),
+                     status_equal=bool(np.array_equal(got["status"], ref.status.cpu().numpy())),
+                     outer_iters_equal=bool(np.array_equal(got["outer_iters"],
+                                                           ref.outer_iters.cpu().numpy())),
+                     x_rel=rel)
+        log(f"  solve_routed bucket {name}: " + json.dumps(stats))
+        check(stats["status_equal"] and stats["outer_iters_equal"],
+              f"routed {name}: status or outer iterations differ from solve_batch")
+        check(rel <= ROUTED_X_REL, f"routed {name}: x differs from solve_batch by {rel:.3e}")
+        check(stats["certified"] == int(solved.sum()),
+              f"routed {name}: a SOLVED lane is not certified")
+    log(f"  solve_routed: {routed['seconds']:.2f} s; launches per rank {counts}")
+    check(counts[0]["thomas"] > 0 and counts[0]["linesearch"] > 0,
+          "routed: K1 or K2 not launched in the lane-change bucket's rank")
+    check(counts[1]["gj"] > 0, "routed: K4a not launched in the QP bucket's rank")
+    return {"tp": [r["tp"]["launches"] for r in ranks], "routed": counts}
 
 
 def phase_long_horizon(device, out_dir):
@@ -3075,6 +3215,92 @@ def reset_entry_counts():
         w.launches = 0
         w.route_launches = dict.fromkeys(w.route_launches, 0)
     L.pallas_gauss_solve.launches = 0
+
+
+# -- the solver options and the tensor-parallel and routed backends ---------
+
+# The gmres tier on the QP suite: its knobs are the SolverOptions defaults
+# (tol 1e-8, restart 50, at most 5 restarts, no preconditioner).
+GMRES_RUNS = (("gmres ip (fused K2)", dict(linear_solver="gmres", algorithm="ip",
+                                             fused_linesearch=True)),
+              ("gmres mehrotra", dict(linear_solver="gmres")),
+              ("schur_pallas_gj", {}))
+PRECISIONS = ("highest", "high", "default")
+
+
+def precision_flags():
+    """The three settings a solve's matmul_precision sets and restores."""
+    import torch
+
+    return (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def qp_run(mcp, th, options, label):
+    """One QP batch through ``solve_batch`` with K2's and K4a's counts set to
+    0 just before and read just after: its figures, every SOLVED lane held to
+    the float64 true KKT."""
+    import torch
+
+    from mcp_tpu_torch import SOLVED, solve_batch
+    from mcp_tpu_torch.kernels import linear_solve as L
+    from mcp_tpu_torch.kernels.linesearch import linesearch_update
+
+    reset_counts()
+    L.gj_solve.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_batch(mcp, th, options=options)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tk = certify64(mcp, res, th)
+    solved = res.status == SOLVED
+    stats = dict(success_rate=float(solved.double().mean()),
+                 certified=int((solved & (tk <= options.tol)).sum()),
+                 median_outer_iters=float(res.outer_iters.double().median()),
+                 linesearch_launches=total(linesearch_update.launches),
+                 gj_launches=L.gj_solve.launches, wall_s=wall)
+    log(f"  {label}: " + json.dumps(stats))
+    check(stats["certified"] == int(solved.sum()),
+          f"{label}: a SOLVED lane has float64 true KKT above tol")
+    return res, stats
+
+
+def phase_solver_options(device, seed=2033):
+    """The QP suite's batch (B=256, n=m=100, float32, the suite's options) on
+    tier "gmres" under "ip" with the fused linesearch (K2) and under
+    "mehrotra", and on "schur_pallas_gj" (K4a), the same θ; then
+    "schur_pallas_gj" at each of PRECISIONS, the precision flags equal
+    before and after. Returns {label: K2 and K4a launches}."""
+    import torch
+
+    from mcp_tpu_torch import SolverOptions, auto_tightening_rate
+    from mcp_tpu_torch.bench import qp
+
+    problem = qp.generate_test_problem(num_primals=QP_N, num_inequalities=QP_N, device=device)
+    mcp = problem.mcp
+    base = SolverOptions(**QP_OPTIONS, tightening_rate=auto_tightening_rate(mcp))
+    th = qp.generate_parameter_batch(torch.Generator().manual_seed(seed), B,
+                                     num_primals=QP_N, num_inequalities=QP_N, device=device)
+    launches = {}
+    runs = {}
+    for label, over in GMRES_RUNS:
+        _, runs[label] = qp_run(mcp, th, dataclasses.replace(base, **over), label)
+        launches[label] = {k: runs[label][k] for k in ("linesearch_launches", "gj_launches")}
+    check(runs["gmres ip (fused K2)"]["linesearch_launches"] > 0, "gmres ip: K2 never launched")
+    check(runs["schur_pallas_gj"]["gj_launches"] > 0, "schur_pallas_gj: K4a never launched")
+    for label in ("gmres ip (fused K2)", "gmres mehrotra"):
+        check(runs[label]["gj_launches"] == 0, f"{label}: K4a launched")
+    before = precision_flags()
+    for name in PRECISIONS:
+        label = f"schur_pallas_gj at matmul_precision={name!r}"
+        _, st = qp_run(mcp, th, dataclasses.replace(base, matmul_precision=name), label)
+        launches[label] = {"gj_launches": st["gj_launches"]}
+        check(st["gj_launches"] > 0, f"{label}: K4a never launched")
+    after = precision_flags()
+    log(f"  precision flags before {before}, after {after}; card {card_line()}")
+    check(after == before, f"matmul_precision: flags {before} became {after}")
+    return launches
 
 
 def phase_bench(device):
@@ -4156,13 +4382,16 @@ def main() -> int:
         quick[0].wait()
         raise
     finish_quick_bench(quick)
+    phase(f"30c: the QP suite (B={B}) on tier gmres (ip with K2, mehrotra) beside "
+          "schur_pallas_gj, and at each matmul_precision")
+    option_launches = phase_solver_options(device)
     phase(f"31: horizon-sharded lane change on 2 ranks (dp=1 x horizon=2, B={HZ_B}), the "
-          "SPIKE gradient and batch sharding")
+          "SPIKE gradient, batch sharding, the tensor-parallel Newton backend and routing")
     from mcp_tpu_torch.kernels.thomas_multi import multi_plan
 
     _, _, k6_b, k6_k = k6_args[3].shape
-    k6_launches = phase_horizon_paths(device, rank_dir("horizon2"),
-                                      multi_plan(k6_b, k6_k, torch.float32).route)
+    k6_launches, rank_launches = phase_horizon_paths(
+        device, rank_dir("horizon2"), multi_plan(k6_b, k6_k, torch.float32).route)
     phase("32: T=64 lane change, one instance, on 4 ranks (float64)")
     phase_long_horizon(device, rank_dir("horizon4"))
     phase("33: one-instance solves on schur_pallas (K8a)")
@@ -4182,6 +4411,12 @@ def main() -> int:
         if key:
             entry["selection_launches"] = {st: c[key] for st, c in selection["launches"].items()
                                            if key in c}
+    for entry in kernels:
+        # What the solver-option runs (phase 30c) and the tp and routed
+        # ranks (phase 31) launched of K1, K2 and K4a.
+        runs = solver_option_launches(entry["name"], option_launches, rank_launches)
+        if runs:
+            entry["solver_option_launches"] = runs
     for entry in kernels:
         # What the bench suites and the demo (phase 30b) launched of it.
         runs = {label: c[entry["name"]] for label, c in bench_launches.items()

@@ -17,12 +17,15 @@ scenarios and ground truth, the training loop with checkpoints, the
 heuristic baselines, the closed-loop evaluation, subgames and real data;
 the C++ scenario sampler in ``native/``; ``analysis/metrics.py``; the CLIs
 in ``scripts/``); and, over ``torch.distributed`` ranks, batch-sharded
-solves and the horizon-sharded SPIKE solve (``parallel/mesh.py``,
-``parallel/horizon.py``). Linear-solver tiers: every banded tier of the JAX
+solves, the horizon-sharded SPIKE solve, the tensor-parallel Newton
+factorization (the ``newton_solver`` backend) and shape-bucket routing
+(``parallel/mesh.py``, ``parallel/horizon.py``, ``parallel/tensor.py``,
+``parallel/routing.py``). Linear-solver tiers: every banded tier of the JAX
 package ("tridiag", "tridiag_cr", "tridiag_auto" and each
 "tridiag_pallas*", with a row time structure or without one) and the dense
-tiers "dense", "condensed", "schur", "schur_pallas", "schur_pallas_gj" and
-"schur_pallas_gjr".
+tiers "dense", "condensed", "schur", "schur_pallas", "schur_pallas_gj",
+"schur_pallas_gjr" and "gmres"; every ``SolverOptions`` field, ``verbose``
+and ``matmul_precision`` included.
 
 Every kernel the JAX package wrote in Pallas is hand-written CUDA for Hopper
 (``kernels/csrc/``): the one-way block-Thomas sweep with QR and the
@@ -32,9 +35,9 @@ Gauss–Jordan solve and solve-and-inverse (K4a, K5), the batched Householder
 QR (K4b/K4c), the multi-right-hand-side sweep of the SPIKE stage (K6), the
 two-way sweep (K7a), the single-system QR with a separate right-hand side
 (K8a) and the compact-WY blocked QR (K8b). On CPU tensors each runs its
-plain PyTorch version. The JAX package's gmres tier, tensor-parallel and
-routed backends, and ``analysis/``'s plots and experiments are not ported
-yet (ROADMAP Queue 1).
+plain PyTorch version. Not ported yet (ROADMAP Queue 1): ``analysis/``'s
+plots, animations and experiments, the Orbax checkpoint backend, the
+JAX-only staging helpers of ``bench/flagships.py`` and ``utils/devices.py``.
 
 Entry points that create state take ``device=`` (default ``"cuda"``, which
 raises on a machine without a GPU); solves follow the device of θ.

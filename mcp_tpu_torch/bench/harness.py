@@ -24,6 +24,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .._device import matmul_precision
 from ..diff import solve
 from ..mcp import PrimalDualMCP
 from ..parallel.batch import _options, batch_statistics, solve_batch, solve_batches_streamed
@@ -135,13 +136,13 @@ def true_kkt_errors(mcp: PrimalDualMCP, result, thetas: torch.Tensor) -> torch.T
     The solver's own kkt_error is the stale pre-step metric and its exit
     can be triggered by ϵ ≤ tol rather than kkt ≤ tol, so an honest report
     re-evaluates the residual at the returned point. Leading axes of
-    ``result``/``thetas`` (a batch, or K batches) are kept. Float32 matmuls
-    run without TF32 (solver.py turns it off)."""
+    ``result``/``thetas`` (a batch, or K batches) are kept. An accuracy
+    metric: float32 matmuls run at full precision, whatever the caller's."""
     x, y, s = result.x, result.y, result.s
     lead = x.shape[:-1]
     x, y, s = x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1]), s.reshape(-1, s.shape[-1])
     thetas = torch.as_tensor(thetas).reshape(-1, thetas.shape[-1])
-    with torch.no_grad():
+    with torch.no_grad(), matmul_precision("highest"):
         g, h = mcp.gh_batched(x, y, thetas)
         kkt = torch.maximum(
             g.abs().amax(dim=1),

@@ -1,4 +1,5 @@
-"""Rank worker of the horizon-sharded and batch-sharded solves.
+"""Rank worker of the horizon-sharded, batch-sharded, tensor-parallel and
+routed solves.
 
 ``spawn(world, tasks, out_dir)`` (or ``start``, which returns before the
 ranks end) starts ``world`` ranks with
@@ -8,7 +9,9 @@ list of tasks on every rank; each rank saves its results, numpy arrays and
 the kernel launch counts of each task's window (K6's also per route), and
 ``spawn`` returns them in rank order. A task is a dict: ``kind`` (a key of ``TASKS``), ``name`` and
 the keyword arguments of that kind. The lane-change problem is built in each
-rank (``bench/lane_change.py``); θ and warm starts come as numpy arrays.
+rank (``bench/lane_change.py``); the tensor-parallel and routed tasks take a
+problem spec (``_build``: the lane change or the QP suite's MCP at given
+sizes); θ and warm starts come as numpy arrays.
 
 Ranks that share one card all compute on it and exchange over gloo. Kernel
 libraries are looked up by content hash (``kernels/_build.py``): build them
@@ -17,6 +20,7 @@ in the parent first, so that no rank compiles.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pickle
@@ -28,14 +32,15 @@ import torch
 
 from .. import SolverOptions
 from ..kernels.cyclic_reduction import cr_thomas_solve
+from ..kernels.linear_solve import gj_solve
 from ..kernels.linesearch import linesearch_update
 from ..kernels.thomas import thomas_solve
 from ..kernels.thomas_babe import babe_thomas_solve
 from ..kernels.thomas_multi import thomas_solve_multi
 
-#: The banded kernel wrappers whose launches a task reports, by short name.
+#: The kernel wrappers whose launches a task reports, by short name.
 WRAPPERS = {"multi": thomas_solve_multi, "thomas": thomas_solve, "babe": babe_thomas_solve,
-            "cr": cr_thomas_solve, "linesearch": linesearch_update}
+            "cr": cr_thomas_solve, "linesearch": linesearch_update, "gj": gj_solve}
 
 
 def _reset():
@@ -61,6 +66,22 @@ def _problem(horizon: int, height: float, device):
     from . import lane_change as lc
 
     return lc.generate_test_problem(horizon=horizon, height=height, device=device)
+
+
+def _build(problem: dict, device):
+    """The MCP of a problem spec: ``{"kind": "lane_change", "horizon": T[,
+    "height": h]}`` or ``{"kind": "qp", "num_primals": n,
+    "num_inequalities": m}``; ``"assume_hy_zero": True`` marks H free of y
+    (the condensed IFT's elimination)."""
+    spec = dict(problem)
+    kind, hy_zero = spec.pop("kind"), spec.pop("assume_hy_zero", False)
+    if kind == "lane_change":
+        mcp = _problem(spec["horizon"], spec.get("height", 50.0), device).parametric_game.mcp
+    else:
+        from . import qp
+
+        mcp = qp.generate_test_problem(device=device, **spec).mcp
+    return dataclasses.replace(mcp, assume_hy_zero=True) if hy_zero else mcp
 
 
 def _numpy(res) -> dict:
@@ -152,8 +173,62 @@ def task_batch_sharded(*, thetas, options, horizon, height=50.0, device):
     return {**_numpy(res), "num_solved": int(n)}
 
 
+def task_lu_tp(*, systems, panel, device):
+    """``lu_solve_tp`` over every rank of each (A, b) of ``systems``."""
+    from ..parallel.tensor import lu_solve_tp, make_tp_mesh
+
+    mesh = make_tp_mesh(device=device)
+    return {"x": [lu_solve_tp(torch.as_tensor(np.asarray(A)), torch.as_tensor(np.asarray(b)),
+                              mesh=mesh, panel=panel).cpu().numpy() for A, b in systems]}
+
+
+def task_tp(*, problem, theta, options, panel=64, grad=False, device):
+    """``solve_single_tp`` of θ (p,) over every rank; with ``grad``, also
+    the gradient of Σx² in θ (its IFT core solves on the ranks too). The
+    window of the launch counts and ``seconds`` is the solve."""
+    from ..parallel.tensor import make_tp_mesh, solve_single_tp
+
+    mesh = make_tp_mesh(device=device)
+    mcp = _build(problem, mesh.device)
+    theta = np.asarray(theta)
+    th = _tensor(theta, mesh.device, torch.from_numpy(theta).dtype).requires_grad_(grad)
+    _sync(device)
+    _reset()
+    t0 = time.perf_counter()
+    res = solve_single_tp(mcp, th, mesh=mesh, panel=panel, options=SolverOptions(**options))
+    _sync(device)
+    out = {**_numpy(res), "seconds": time.perf_counter() - t0, "launches": _counts()}
+    if grad:
+        (g,) = torch.autograd.grad((res.x ** 2).sum(), th)
+        out["grad"] = g.cpu().numpy()
+    return out
+
+
+def task_routed(*, buckets, device):
+    """``solve_routed`` of the buckets over every rank: each a dict of
+    ``problem``, ``thetas``, ``options`` and optionally ``weight``. The
+    window of the launch counts and ``seconds`` is the routed solve."""
+    from ..parallel.routing import ShapeBucket, solve_routed
+
+    shaped = []
+    for b in buckets:
+        thetas = np.asarray(b["thetas"])
+        shaped.append(ShapeBucket(
+            _build(b["problem"], device),
+            _tensor(thetas, device, torch.from_numpy(thetas).dtype),
+            options=SolverOptions(**b["options"]), weight=b.get("weight")))
+    _sync(device)
+    _reset()
+    t0 = time.perf_counter()
+    res = solve_routed(shaped, device=device)
+    _sync(device)
+    return {"results": [_numpy(r) for r in res], "seconds": time.perf_counter() - t0,
+            "launches": _counts()}
+
+
 TASKS = {"tridiag": task_tridiag, "solve": task_solve, "batch": task_batch,
-         "grad": task_grad, "batch_sharded": task_batch_sharded}
+         "grad": task_grad, "batch_sharded": task_batch_sharded, "lu_tp": task_lu_tp,
+         "tp": task_tp, "routed": task_routed}
 
 
 def run_rank(rank: int, world: int, out_dir: str, tasks: list, device: str, backend: str,

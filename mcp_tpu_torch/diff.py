@@ -26,7 +26,9 @@ package's three branches do:
   (the horizon-sharded SPIKE solve of ``parallel/horizon.py``);
 * ``"condensed"``, or ``"tridiag"`` without row structure, with Hy ≡ 0: the
   same elimination on the dense n×n A, solved by ``torch.linalg.solve``
-  (``"tridiag"``: ``block_tridiag.tridiag_solve_permuted``);
+  (``"tridiag"``: ``block_tridiag.tridiag_solve_permuted``; ``"condensed"``
+  with a ``newton_solver`` that has ``ift_solve`` and ``ift_solve_t``: by
+  those, e.g. the tensor-parallel LU of ``parallel/tensor.py``);
 * otherwise: the dense (n+2m) ∇F_z, LU-factored once (``lu_solve`` with
   ``adjoint=True`` for the transpose).
 
@@ -147,11 +149,12 @@ def _banded_operators(mcp, options, x, y, s, theta, tridiag_solver=None):
 
 
 def _ift_operators(mcp: PrimalDualMCP, options: SolverOptions, x, y, s, theta,
-                   tridiag_solver=None):
+                   tridiag_solver=None, newton_solver=None):
     """(solve, transpose_solve) of −∇F_z at the solution: ``solve(b)`` is
     z with −∇F_z z = b, ``transpose_solve(c)`` is w with (−∇F_z)ᵀ w = c,
     both over the batch ((B, n+2m) → (B, n+2m)). ``tridiag_solver`` reaches
-    the banded branch only, as in the JAX package."""
+    the banded branch only, ``newton_solver`` the condensed one, as in the
+    JAX package."""
     sens = options.sensitivity_solver
     ts = mcp.time_structure
     if (sens == "tridiag" and mcp.assume_hy_zero and ts is not None
@@ -169,6 +172,11 @@ def _ift_operators(mcp: PrimalDualMCP, options: SolverOptions, x, y, s, theta,
                 )
             A_solve = lambda r: tridiag_solve_permuted(A, r, ts)
             AT_solve = lambda r: tridiag_solve_permuted(A.mT, r, ts)
+        elif hasattr(newton_solver, "ift_solve"):
+            # The backend's own core solves: the backward pass rides the
+            # same ranks as the forward.
+            A_solve = lambda r: newton_solver.ift_solve(A, r)
+            AT_solve = lambda r: newton_solver.ift_solve_t(A, r)
         else:
             A_solve = lambda r: torch.linalg.solve(A, r)
             AT_solve = lambda r: torch.linalg.solve(A.mT, r)
@@ -192,11 +200,12 @@ def _F_of_theta(mcp, x, y, s, eps):
 class _IFTSolve(torch.autograd.Function):
     """``ip_solve`` with IFT derivatives in θ (reverse and forward mode);
     ``tridiag_solver`` overrides the banded block-tridiagonal solves of both
-    the solve and the IFT."""
+    the solve and the IFT, ``newton_solver`` the Newton steps and (see
+    ``_ift_operators``) the condensed IFT's core solves."""
 
     @staticmethod
-    def forward(mcp, options, tridiag_solver, theta, x0, y0, s0):
-        out = ip_solve(mcp, options, theta, x0, y0, s0, tridiag_solver)
+    def forward(mcp, options, tridiag_solver, newton_solver, theta, x0, y0, s0):
+        out = ip_solve(mcp, options, theta, x0, y0, s0, tridiag_solver, newton_solver)
         # A solve whose loop never runs (max_outer_iters ≤ 1) returns its
         # starting point itself; autograd saves no input as an output, so
         # such an output leaves as a view.
@@ -205,10 +214,11 @@ class _IFTSolve(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        mcp, options, tridiag_solver, theta = inputs[:4]
+        mcp, options, tridiag_solver, newton_solver, theta = inputs[:5]
         x, y, s, kkt, eps, outer, status = output
         ctx.mark_non_differentiable(kkt, eps, outer, status)
         ctx.mcp, ctx.options, ctx.tridiag_solver = mcp, options, tridiag_solver
+        ctx.newton_solver = newton_solver
         ctx.save_for_backward(theta, x, y, s, eps)
         ctx.save_for_forward(theta, x, y, s, eps)
 
@@ -220,14 +230,14 @@ class _IFTSolve(torch.autograd.Function):
         zbar = torch.cat([torch.zeros_like(v) if g is None else g
                           for g, v in ((gx, x), (gy, y), (gs, s))], dim=1)
         _, transpose_solve = _ift_operators(ctx.mcp, ctx.options, x, y, s, theta,
-                                            ctx.tridiag_solver)
+                                            ctx.tridiag_solver, ctx.newton_solver)
         with record_function(SPAN_IFT_SOLVE):
             w = transpose_solve(zbar)
         _, F_vjp = vjp(_F_of_theta(ctx.mcp, x, y, s, eps), theta)
-        return None, None, None, F_vjp(w)[0], None, None, None
+        return None, None, None, None, F_vjp(w)[0], None, None, None
 
     @staticmethod
-    def jvp(ctx, _mcp, _options, _tridiag_solver, theta_dot, *_):
+    def jvp(ctx, _mcp, _options, _tridiag_solver, _newton_solver, theta_dot, *_):
         if not ctx.mcp.compute_sensitivities:
             raise ValueError(_MISSING)
         theta, x, y, s, eps = ctx.saved_tensors
@@ -237,7 +247,7 @@ class _IFTSolve(torch.autograd.Function):
         else:
             _, F_dot = jvp(_F_of_theta(ctx.mcp, x, y, s, eps), (theta,), (theta_dot,))
             solve, _ = _ift_operators(ctx.mcp, ctx.options, x, y, s, theta,
-                                      ctx.tridiag_solver)
+                                      ctx.tridiag_solver, ctx.newton_solver)
             with record_function(SPAN_IFT_SOLVE):
                 z = solve(F_dot)
         return z[:, :n], z[:, n : n + m], z[:, n + m :], None, None, None, None
@@ -247,17 +257,13 @@ def _solve_ts(mcp: PrimalDualMCP, options: SolverOptions, tridiag_solver, newton
               theta, x0, y0, s0) -> SolveResult:
     """One batched solve (θ (B, p), warm starts (B, ·)), differentiable in θ
     through the IFT, with the banded block-tridiagonal solves of the Newton
-    steps and of the IFT overridden by ``tridiag_solver`` (None: the tier's
-    own). The solve itself runs without a graph, so a θ that carries no
-    gradient and no tangent costs what ``ip_solve`` costs. ``newton_solver``
-    (the JAX package's whole-Newton-step override of its tensor-parallel
-    backend) is not ported."""
-    if newton_solver is not None:
-        raise NotImplementedError(
-            "newton_solver (the tensor-parallel Newton step, parallel/tensor.py) "
-            "is not ported yet (ROADMAP Queue 1 item 8)"
-        )
-    return SolveResult(*_IFTSolve.apply(mcp, options, tridiag_solver, theta, x0, y0, s0))
+    steps and of the IFT overridden by ``tridiag_solver`` and the other
+    tiers' Newton steps by ``newton_solver`` (None: the tier's own; see
+    ``_ift_operators`` for the IFT's). The solve itself runs without a
+    graph, so a θ that carries no gradient and no tangent costs what
+    ``ip_solve`` costs."""
+    return SolveResult(*_IFTSolve.apply(mcp, options, tridiag_solver, newton_solver,
+                                        theta, x0, y0, s0))
 
 
 def _solve(mcp: PrimalDualMCP, options: SolverOptions, theta, x0, y0, s0) -> SolveResult:

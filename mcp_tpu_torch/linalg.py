@@ -27,11 +27,15 @@ Tiers:
   * "schur_pallas_gjr": by the Gauss–Jordan solve-and-inverse kernel (K5,
     ``gji_solve``) plus one refinement with A⁻¹ against the true matrix.
 
+  * "gmres": the Schur system by restarted GMRES (``newton_step_gmres``),
+    lane by lane what ``jax.scipy.sparse.linalg.gmres(...,
+    solve_method="batched")`` does under the JAX package's vmap.
+
 The LU tiers use ``torch.linalg`` as the JAX package leaves them to XLA; the
-Schur product (Gy/w)·Hx is a plain batched matmul. ``newton_step_tridiag``
-is the banded tiers' step on an MCP whose Jacobian is linearized densely
-(no row time structure). The JAX package's "gmres" tier is not ported (it
-reaches no Pallas kernel).
+Schur product (Gy/w)·Hx is a plain batched matmul, and so are GMRES's
+matvecs and projections (the JAX package runs them outside any kernel).
+``newton_step_tridiag`` is the banded tiers' step on an MCP whose Jacobian
+is linearized densely (no row time structure).
 """
 
 from __future__ import annotations
@@ -42,11 +46,6 @@ from .kernels.block_tridiag import tridiag_solve_permuted
 from .kernels.linear_solve import gauss_solve, gj_solve, gji_solve
 
 Tensor = torch.Tensor
-
-GMRES_NOT_PORTED = (
-    "linear_solver='gmres' is not ported yet (ROADMAP Queue 1 item 3)"
-)
-
 
 def _mv(A: Tensor, v: Tensor) -> Tensor:
     """Batched matrix-vector product: A (B,r,c), v (B,c) → (B,r)."""
@@ -167,6 +166,105 @@ def newton_step_schur_pallas_gjr(Gx, Gy, Hx, Hy, y, s, rG, rH, rC, reg):
     return _schur_recover(dx, Hx, b2, w, d, s, rC)
 
 
+def _safe_normalize(v: Tensor, thresh=None):
+    """(v/‖v‖, ‖v‖) per lane of v (B, k), both 0 where ‖v‖ ≤ ``thresh``
+    (a scalar or (B,); default the dtype's ε): jax.scipy's
+    ``_safe_normalize``."""
+    norm = torch.sqrt((v * v).sum(dim=1))
+    if thresh is None:
+        thresh = torch.finfo(v.dtype).eps
+    use = norm > thresh
+    unit = torch.where(use[:, None], v / norm[:, None], torch.zeros_like(v))
+    return unit, torch.where(use, norm, torch.zeros_like(norm))
+
+
+def _gmres_restart(matvec, M, b, x0, unit_r, r_norm, restart):
+    """One restart of jax.scipy's batched GMRES (``_gmres_batched``) on every
+    lane: ``restart`` Arnoldi steps on M(A(·)) from the unit residual, then
+    the least-squares solve of the Hessenberg system through its normal
+    equations. A lane whose new Krylov vector vanishes (breakdown) stops:
+    its later steps are computed and discarded, as a vmapped while loop
+    discards them. Returns (x, unit residual, residual norm), the residual
+    preconditioned."""
+    B, n = b.shape
+    eps = torch.finfo(b.dtype).eps
+    V = b.new_zeros((B, n, restart + 1))
+    V[:, :, 0] = unit_r
+    # H starts as the identity's rows, so that rows a breakdown leaves
+    # unused keep the normal equations nonsingular.
+    H = torch.eye(restart, restart + 1, dtype=b.dtype, device=b.device).repeat(B, 1, 1)
+    broken = torch.zeros(B, dtype=torch.bool, device=b.device)
+    for k in range(restart):
+        v = M(matvec(V[:, :, k]))
+        _, v_norm0 = _safe_normalize(v)
+        # Classical Gram–Schmidt against every column (the unset ones are
+        # 0). jax.scipy's "twice is enough" loop makes one pass: its second
+        # pass runs only while k < max_iterations − 1, and its first pass
+        # leaves k = 1 = max_iterations − 1.
+        h = (v[:, None, :] @ V)[:, 0]
+        v = v - _mv(V, h)
+        unit_v, v_norm1 = _safe_normalize(v, eps * v_norm0)
+        h[:, k + 1] = v_norm1
+        keep = ~broken[:, None]
+        V[:, :, k + 1] = torch.where(keep, unit_v, V[:, :, k + 1])
+        H[:, k, :] = torch.where(keep, h, H[:, k, :])
+        broken = broken | (v_norm1 == 0)
+    beta = b.new_zeros((B, restart + 1))
+    beta[:, 0] = r_norm
+    # jax.scipy's _lstsq: (H Hᵀ) y = H β by Cholesky; a factorization that
+    # fails gives NaN, as XLA's Cholesky does.
+    L, info = torch.linalg.cholesky_ex(H @ H.mT)
+    y = torch.cholesky_solve(_mv(H, beta)[..., None], L)[..., 0]
+    y = torch.where((info == 0)[:, None], y, torch.full_like(y, torch.nan))
+    x = x0 + _mv(V[:, :, :-1], y)
+    unit_r, r_norm = _safe_normalize(M(b - matvec(x)))
+    return x, unit_r, r_norm
+
+
+def _gmres_inner(A, b, *, tol, restart, maxiter, preconditioner):
+    """Restarted GMRES on every lane of A (B,n,n) x = b (B,n), from x = 0:
+    per lane ``jax.scipy.sparse.linalg.gmres(A, b, tol=tol,
+    restart=min(n, restart), maxiter=maxiter, M=M, solve_method="batched")``.
+    A lane stops once its preconditioned residual ‖M(b − A x)‖ ≤ tol·‖b‖,
+    or after ``maxiter`` restarts. ``preconditioner`` "jacobi" takes
+    M = diag(A)⁻¹ (|A_ii| ≤ 1e-30 read as 1), applied on the LEFT as
+    jax.scipy applies M: the Krylov vectors are M(A(v)); "none" takes M = I."""
+    if preconditioner == "jacobi":
+        dA = torch.diagonal(A, dim1=-2, dim2=-1)
+        dinv = 1.0 / torch.where(dA.abs() > 1e-30, dA, torch.ones_like(dA))
+        M = lambda v: dinv * v
+    elif preconditioner == "none":
+        M = lambda v: v
+    else:
+        raise ValueError(f"unknown gmres preconditioner {preconditioner!r}")
+    matvec = lambda v: _mv(A, v)
+    restart = min(b.shape[1], restart)
+    atol = tol * torch.sqrt((b * b).sum(dim=1))
+    x = torch.zeros_like(b)
+    unit_r, r_norm = _safe_normalize(M(b))  # the residual at x = 0
+    live = r_norm > atol
+    for _ in range(maxiter):
+        if not bool(live.any()):
+            break
+        xn, un, rn = _gmres_restart(matvec, M, b, x, unit_r, r_norm, restart)
+        lv = live[:, None]
+        x, unit_r = torch.where(lv, xn, x), torch.where(lv, un, unit_r)
+        r_norm = torch.where(live, rn, r_norm)
+        live = live & (r_norm > atol)
+    return x
+
+
+def newton_step_gmres(Gx, Gy, Hx, Hy, y, s, rG, rH, rC, reg, *, tol: float = 1e-8,
+                      restart: int = 50, maxiter: int = 5, preconditioner: str = "none"):
+    """Schur step with the n×n system solved by restarted GMRES (the
+    reference's KrylovJL_GMRES tier); tol, restart, maxiter and the
+    preconditioner are the ``gmres_*`` fields of ``SolverOptions``."""
+    A, b, b2, w, d = _schur_system(Gx, Gy, Hx, y, s, rG, rH, rC, reg)
+    dx = _gmres_inner(A, b, tol=tol, restart=restart, maxiter=maxiter,
+                      preconditioner=preconditioner)
+    return _schur_recover(dx, Hx, b2, w, d, s, rC)
+
+
 def newton_step_tridiag(Gx, Gy, Hx, Hy, y, s, rG, rH, rC, reg, *, structure,
                         algorithm=None):
     """Schur step solved by the time-major block-tridiagonal solve
@@ -190,10 +288,10 @@ def factored_newton_solver(tier: str):
     Returns ``make(Gx, Gy, Hx, Hy, y, s, reg) -> solve_f`` where
     ``solve_f(bG, bH, bC) -> (dx, dy, ds)`` solves ``(∇F_z + reg·I) δ =
     -(bG, bH, bC)``. LU tiers factor once and back-substitute per call; the
-    kernel tiers re-solve per call, except "schur_pallas_gjr", which applies
-    one explicit inverse with one refinement pass per call."""
-    if tier == "gmres":
-        raise NotImplementedError(GMRES_NOT_PORTED)
+    kernel tiers and GMRES re-solve per call, except "schur_pallas_gjr",
+    which applies one explicit inverse with one refinement pass per call.
+    The Schur tiers' ``make`` takes ``gmres_options`` (the keywords of
+    ``newton_step_gmres``; default its defaults) for "gmres"."""
     if tier == "dense":
 
         def make(Gx, Gy, Hx, Hy, y, s, reg):
@@ -223,9 +321,9 @@ def factored_newton_solver(tier: str):
 
             return solve_f
 
-    elif tier in ("schur", "schur_pallas", "schur_pallas_gj", "schur_pallas_gjr"):
+    elif tier in ("schur", "schur_pallas", "schur_pallas_gj", "schur_pallas_gjr", "gmres"):
 
-        def make(Gx, Gy, Hx, Hy, y, s, reg):
+        def make(Gx, Gy, Hx, Hy, y, s, reg, gmres_options=None):
             A, w, d = _schur_matrix(Gx, Gy, Hx, y, s, reg)
             if tier == "schur":
                 LU, piv = torch.linalg.lu_factor(A)
@@ -234,7 +332,7 @@ def factored_newton_solver(tier: str):
                 inner = lambda b: gauss_solve(A, b.contiguous())
             elif tier == "schur_pallas_gj":
                 inner = lambda b: gj_solve(A, b.contiguous())
-            else:
+            elif tier == "schur_pallas_gjr":
                 # One elimination serves every solve at this iterate: each
                 # is a matvec with A⁻¹ plus one refinement matvec pair.
                 _, Ainv = gji_solve(A, A.new_zeros(A.shape[:2]))
@@ -242,6 +340,11 @@ def factored_newton_solver(tier: str):
                 def inner(b):
                     x0 = _mv(Ainv, b)
                     return x0 + _mv(Ainv, b - _mv(A, x0))
+
+            else:
+                kw = gmres_options or dict(tol=1e-8, restart=50, maxiter=5,
+                                           preconditioner="none")
+                inner = lambda b: _gmres_inner(A, b, **kw)
 
             def solve_f(bG, bH, bC):
                 b2 = -bH - d * bC
@@ -272,6 +375,7 @@ NEWTON_STEPS = {
     "schur_pallas": newton_step_schur_pallas,
     "schur_pallas_gj": newton_step_schur_pallas_gj,
     "schur_pallas_gjr": newton_step_schur_pallas_gjr,
+    "gmres": newton_step_gmres,
 }
 
 

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from ._device import matmul_precision
+
 Tensor = torch.Tensor
 
 
@@ -213,11 +215,12 @@ def verify_affine(
     ``gh`` at two random probe points within ``atol``. The probes are
     standard normal draws from ``generator`` (a CPU generator; default seed
     7), moved to θ's device. Call it before constructing an MCP with
-    ``affine=True`` whose structure is not known analytically."""
+    ``affine=True`` whose structure is not known analytically. An accuracy
+    metric: float32 matmuls run at full precision, whatever the caller's."""
     generator = torch.Generator().manual_seed(7) if generator is None else generator
     theta = theta[None] if theta.dim() == 1 else theta
     B, n, m = theta.shape[0], mcp.unconstrained_dimension, mcp.constrained_dimension
-    with torch.no_grad():
+    with torch.no_grad(), matmul_precision("highest"):
         g0, h0, Gx, Gy, Hx, Hy = mcp.gh_affine_data(theta)
 
         def off(v, v0, Jx, Jy, x, y):

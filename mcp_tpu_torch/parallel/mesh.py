@@ -18,7 +18,9 @@ the host when the backend is gloo and the device is a card.
 Entry: ``initialize_distributed`` (a thin wrapper over
 ``torch.distributed.init_process_group``; the caller names the backend, the
 rendezvous, the world size and the rank), then ``make_batch_mesh`` (or
-``parallel.horizon.make_horizon_mesh``/``make_dp_horizon_mesh``).
+``make_tp_mesh``, ``parallel.horizon.make_horizon_mesh``/
+``make_dp_horizon_mesh``). A mesh may lay out a subset of the ranks
+(``ranks=``, as ``parallel/routing.py`` gives each bucket its group).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..types import SOLVED, SolveResult
 from .batch import _options
 
 BATCH_AXIS = "batch"
+TP_AXIS = "tp"
 
 
 def initialize_distributed(**kwargs) -> None:
@@ -49,8 +52,9 @@ def initialize_distributed(**kwargs) -> None:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """Ranks ``0..size-1`` of the default group laid out row-major over
-    ``axis_names`` (the last axis minor: its neighbours are adjacent ranks).
+    """Ranks of the default group (all of them, ``0..size-1``, or the
+    subset a mesh was made over) laid out row-major over ``axis_names`` (the
+    last axis minor: its neighbours are adjacent ranks).
 
     groups: one process group per axis, holding the ranks that share this
       rank's index on every other axis (in axis order).
@@ -80,42 +84,58 @@ class Mesh:
         return self.coords[self.axis_names.index(name)]
 
 
-def make_mesh(shape, axis_names, *, device="cuda") -> Mesh:
-    """A mesh of ``shape`` over all ranks of the default group. Every rank
-    must call it, in the same order as every other collective (it creates
-    one process group per line of each axis)."""
+def make_mesh(shape, axis_names, *, ranks=None, device="cuda") -> Optional[Mesh]:
+    """A mesh of ``shape`` over ``ranks`` (default: every rank of the
+    default group, in order). Every rank of the default group must call it,
+    in the same order as every other collective, members of ``ranks`` or
+    not (it creates one process group per line of each axis); a rank
+    outside ``ranks`` gets None."""
     device = resolve_device(device)
     shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
     if len(shape) != len(axis_names):
         raise ValueError(f"mesh shape {shape} and axes {axis_names} differ in length")
-    world, rank = dist.get_world_size(), dist.get_rank()
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
     size = 1
     for s in shape:
         size *= s
-    if size != world:
-        raise ValueError(f"mesh shape {shape} needs {size} ranks, got {world}")
+    if size != len(ranks):
+        raise ValueError(f"mesh shape {shape} needs {size} ranks, got {len(ranks)}")
     strides = [1] * len(shape)
     for a in range(len(shape) - 2, -1, -1):
         strides[a] = strides[a + 1] * shape[a + 1]
-    coords = tuple((rank // strides[a]) % shape[a] for a in range(len(shape)))
+    rank = dist.get_rank()
+    pos = ranks.index(rank) if rank in ranks else None
     groups = []
     for a in range(len(shape)):
         mine = None
-        # One group per line along axis a: the ranks with every other index
-        # fixed. new_group is collective, so every rank creates every line.
-        for base in range(world):
+        # One group per line along axis a: the positions with every other
+        # index fixed. new_group is collective, so every rank creates every
+        # line.
+        for base in range(size):
             if (base // strides[a]) % shape[a]:
                 continue
-            ranks = [base + i * strides[a] for i in range(shape[a])]
-            g = dist.new_group(ranks)
-            if rank in ranks:
+            line = [base + i * strides[a] for i in range(shape[a])]
+            g = dist.new_group([ranks[i] for i in line])
+            if pos in line:
                 mine = g
         groups.append(mine)
+    if pos is None:
+        return None
+    coords = tuple((pos // strides[a]) % shape[a] for a in range(len(shape)))
     return Mesh(axis_names, shape, tuple(groups), coords, device)
 
 
-def make_batch_mesh(*, axis_name: str = BATCH_AXIS, device="cuda") -> Mesh:
-    """1-D mesh over every rank for batch-parallel solving."""
+def make_batch_mesh(*, axis_name: str = BATCH_AXIS, ranks=None, device="cuda") -> Optional[Mesh]:
+    """1-D mesh over every rank (or over ``ranks``; see ``make_mesh``) for
+    batch-parallel solving."""
+    size = dist.get_world_size() if ranks is None else len(ranks)
+    return make_mesh((size,), (axis_name,), ranks=ranks, device=device)
+
+
+def make_tp_mesh(*, axis_name: str = TP_AXIS, device="cuda") -> Mesh:
+    """1-D mesh over every rank for tensor-parallel factorizations
+    (``parallel/tensor.py``)."""
+    device = resolve_device(device)
     return make_mesh((dist.get_world_size(),), (axis_name,), device=device)
 
 
@@ -131,6 +151,15 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src.contiguous(), group=group)
     return torch.stack(parts).to(t.device)
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Rank ``src`` of ``group``'s tensor (group-rank numbering) on every
+    rank of the group, shaped and placed like ``t`` (whose values matter on
+    ``src`` only)."""
+    buf = t.cpu().clone() if _host_hop(t, group) else t.clone()
+    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+    return buf.to(t.device)
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:

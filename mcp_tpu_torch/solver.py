@@ -50,8 +50,15 @@ package does.
 ``tridiag_solver``, a callable (diag, lower, upper, rhs) → x, overrides the
 block-tridiagonal solve of the banded tiers (the horizon-sharded SPIKE solve
 of ``parallel/horizon.py``); the tier still decides everything else, e.g.
-the fused K2 linesearch on ``"tridiag_pallas"``. Options that select a path
-not ported yet raise ``NotImplementedError`` naming the ROADMAP item.
+the fused K2 linesearch on ``"tridiag_pallas"``. ``newton_solver``, a
+callable of the ``NEWTON_STEPS`` signature, replaces the Newton step of the
+other tiers under ``algorithm="ip"`` (the tensor-parallel factorization of
+``parallel/tensor.py``); the polish reuses it.
+
+``ip_solve`` runs the whole solve at ``options.matmul_precision``
+(``_device.matmul_precision``). With ``verbose`` it prints one line per lane
+whose inner step failed, the JAX package's debug messages; each print costs
+one host sync, and without ``verbose`` the loops sync as before.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ import torch
 from torch.func import vmap
 from torch.profiler import record_function
 
+from ._device import matmul_precision
 from .kernels.block_tridiag import (
     banded_jac_mv,
     banded_newton_step_compressed,
@@ -75,19 +83,14 @@ from .kernels.block_tridiag import (
 )
 from .kernels.linesearch import _candidate_tensor, linesearch_update
 from .kernels.thomas_dispatch import PALLAS_TIERS, auto_thomas_solve, pallas_thomas_solve
-from .linalg import (
-    GMRES_NOT_PORTED,
-    NEWTON_STEPS,
-    factored_newton_solver,
-    newton_step_tridiag,
-)
+from .linalg import NEWTON_STEPS, factored_newton_solver, newton_step_tridiag
 from .mcp import PrimalDualMCP
 from .types import FAILED, SOLVED, SolveResult
 
 # A float32 matmul on the card may run in TF32 (about three decimal digits);
 # Newton steps and residual metrics need full float32, the analogue of the
 # JAX package's matmul_precision="highest". Set once, here, for every
-# solver-path matmul and convolution.
+# matmul and convolution outside a solve; ip_solve sets its own precision.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -103,8 +106,19 @@ SPAN_LOOP_TEST = "mcp.loop_test"
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
     """Solver options: every field and default of the JAX package's
-    ``SolverOptions``, so options carry over unchanged. Fields that select
-    a path this port does not have yet are rejected by ``ip_solve``."""
+    ``SolverOptions``, so options carry over unchanged.
+
+    matmul_precision: the float32 matrix products of the solve, as
+    ``jax.default_matmul_precision`` takes it: "highest"/"float32" (full
+    float32), "high"/"tensorfloat32" (TF32 on the card) or
+    "default"/"bfloat16" (bf16 passes; on a CPU with bf16 units oneDNN
+    takes it too). The hand-written kernels ignore it: they compute in full
+    float32, as the Pallas kernels pin ``Precision.HIGHEST`` (DESIGN.md §7).
+    The true-KKT metrics, ``bench.harness.true_kkt_errors`` and the
+    polish's exit test, stay at full float32 inside a reduced-precision
+    solve, as the JAX package pins "highest" for its metrics
+    (``bench/harness.py``, ``mcp.verify_affine``).
+    """
 
     tol: float = 1e-4
     max_inner_iters: int = 20
@@ -221,8 +235,6 @@ def _check_tier(mcp: PrimalDualMCP, tier: str):
                 "linear_solver='tridiag' requires an MCP with time_structure "
                 "(built by build_parametric_game for trajectory games)."
             )
-    elif tier == "gmres":
-        raise NotImplementedError(GMRES_NOT_PORTED)
     elif tier not in NEWTON_STEPS:
         raise ValueError(f"unknown linear_solver {tier!r}")
 
@@ -233,15 +245,25 @@ def _check_supported(mcp: PrimalDualMCP, options: SolverOptions):
     _check_tier(mcp, options.linear_solver)
     if options.retry:
         _check_tier(mcp, options.retry_linear_solver or options.linear_solver)
-    if options.verbose:
-        raise NotImplementedError(
-            "verbose=True is not ported yet (ROADMAP Queue 1 item 3)"
-        )
-    if options.matmul_precision != "highest":
-        raise NotImplementedError(
-            "only matmul_precision='highest' (TF32 off) is ported "
-            "(ROADMAP Queue 1 item 3)"
-        )
+
+
+def _gmres_options(options: SolverOptions) -> dict:
+    """The keywords of ``linalg.newton_step_gmres`` from the gmres_* fields."""
+    return dict(tol=options.gmres_tol, restart=options.gmres_restart,
+                maxiter=options.gmres_maxiter, preconditioner=options.gmres_preconditioner)
+
+
+def _report_failed(live, template: str, value, *why):
+    """verbose: print ``template`` once for every lane of ``live`` whose
+    step failed, with its flags ``why`` (each (B,) bool) and ``value`` (B,),
+    formatted as the JAX package's ``jax.debug.print`` formats them."""
+    live = live.cpu()
+    if not bool(live.any()):
+        return
+    value = value.detach().cpu().numpy()
+    why = [w.cpu().numpy() for w in why]
+    for i in live.nonzero().flatten().tolist():
+        print(template.format(*(w[i] for w in why), value[i]))
 
 
 def default_initialization(
@@ -273,12 +295,16 @@ def ip_solve(
     y0: torch.Tensor,
     s0: torch.Tensor,
     tridiag_solver=None,
+    newton_solver=None,
 ) -> SolveResult:
     """One batched interior-point solve: θ (B, p), x0 (B, n), y0/s0 (B, m).
     The iterate dtype and device are x0's; θ must match them.
-    ``tridiag_solver`` overrides the banded tiers' block-tridiagonal solve
-    (see the module docstring)."""
+    ``tridiag_solver`` overrides the banded tiers' block-tridiagonal solve,
+    ``newton_solver`` the other tiers' Newton step (``algorithm="ip"``
+    only; see the module docstring)."""
     _check_supported(mcp, options)
+    if newton_solver is not None and options.algorithm != "ip":
+        raise NotImplementedError("newton_solver override currently supports algorithm='ip'")
     for name, a in (("theta", theta), ("y0", y0), ("s0", s0)):
         if a.dtype != x0.dtype or a.device != x0.device:
             raise ValueError(
@@ -302,6 +328,11 @@ def ip_solve(
             "least certify the terminal residual.",
             stacklevel=2,
         )
+    with matmul_precision(options.matmul_precision):
+        return _ip_solve(mcp, options, theta, x0, y0, s0, tridiag_solver, newton_solver)
+
+
+def _ip_solve(mcp, options, theta, x0, y0, s0, tridiag_solver, newton_solver) -> SolveResult:
     if options.algorithm == "mehrotra":
         res = _mehrotra_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver)
     elif options.algorithm == "hybrid":
@@ -323,13 +354,15 @@ def ip_solve(
         r2 = _mehrotra_solve_body(mcp, options, theta, r1.x, r1.y, r1.s, tridiag_solver)
         res = r2._replace(outer_iters=r1.outer_iters + r2.outer_iters)
     else:
-        res = _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver)
+        res = _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver,
+                             newton_solver=newton_solver)
     for _ in range(int(options.retry)):
-        res = _retry_failed(mcp, options, theta, res, tridiag_solver)
+        res = _retry_failed(mcp, options, theta, res, tridiag_solver, newton_solver)
     return res
 
 
-def _retry_failed(mcp, options, theta, res: SolveResult, tridiag_solver=None) -> SolveResult:
+def _retry_failed(mcp, options, theta, res: SolveResult, tridiag_solver=None,
+                  newton_solver=None) -> SolveResult:
     """One gated retry round: lanes that did not solve re-solve from the
     cold start x = 0, y = s = 1 under the annealed schedule; the other
     lanes' loops are gated off, so when every lane solved the round costs
@@ -351,7 +384,7 @@ def _retry_failed(mcp, options, theta, res: SolveResult, tridiag_solver=None) ->
     r2 = _ip_solve_body(
         mcp, retry_options, theta,
         torch.zeros_like(res.x), torch.ones_like(res.y), torch.ones_like(res.s),
-        tridiag_solver, gate=need,
+        tridiag_solver, newton_solver=newton_solver, gate=need,
     )
     take = need & (r2.status == SOLVED)
 
@@ -390,13 +423,14 @@ def _make_linearizer(mcp: PrimalDualMCP, theta: torch.Tensor, dtype):
     return lambda x, y: vmap(mcp.gh_linearized)(x, y, theta)
 
 
-def _make_step(mcp, options, theta, dtype, reg, lin=None, tridiag_solver=None):
+def _make_step(mcp, options, theta, dtype, reg, lin=None, tridiag_solver=None,
+               newton_solver=None):
     """``step(x, y, s, eps) -> (rG, rH, rC, dx, dy, ds)``: the residual of
     every lane at (x, y, s) and its regularized Newton direction, on the
     tier of ``options.linear_solver`` (a banded tier's block-tridiagonal
-    solve overridden by ``tridiag_solver``). A dense tier, and a banded tier
-    without a row time structure, linearize by ``lin`` (default: a new
-    ``_make_linearizer``)."""
+    solve overridden by ``tridiag_solver``, another tier's Newton step by
+    ``newton_solver``). A dense tier, and a banded tier without a row time
+    structure, linearize by ``lin`` (default: a new ``_make_linearizer``)."""
     banded = options.linear_solver in BANDED_SOLVERS
     st = mcp.time_structure
     if banded and st.row_permutation is not None:
@@ -421,6 +455,10 @@ def _make_step(mcp, options, theta, dtype, reg, lin=None, tridiag_solver=None):
     if banded:
         newton = functools.partial(newton_step_tridiag, structure=st,
                                    algorithm=_tridiag_algorithm(options, tridiag_solver))
+    elif newton_solver is not None:
+        newton = newton_solver
+    elif options.linear_solver == "gmres":
+        newton = functools.partial(NEWTON_STEPS["gmres"], **_gmres_options(options))
     else:
         newton = NEWTON_STEPS[options.linear_solver]
 
@@ -443,7 +481,9 @@ def _any(live: torch.Tensor) -> bool:
 
 @record_function(SPAN_LINESEARCH)
 def _unfused_step(options, x, dx, s, ds, y, dy):
-    """The unfused linesearch and update: (x', s', y', step_failed)."""
+    """The unfused linesearch and update: (x', s', y', step_failed, (lin_failed,
+    ls_failed)), a lane's step failing on a non-finite direction or on the
+    linesearch."""
     lin_failed = ~(
         torch.isfinite(dx).all(dim=1)
         & torch.isfinite(dy).all(dim=1)
@@ -458,13 +498,15 @@ def _unfused_step(options, x, dx, s, ds, y, dy):
         decay=options.decay,
         min_stepsize=options.min_stepsize,
     )
-    step_failed = lin_failed | torch.isnan(alphas[0]) | torch.isnan(alphas[1])
+    ls_failed = torch.isnan(alphas[0]) | torch.isnan(alphas[1])
+    step_failed = lin_failed | ls_failed
     zero = torch.zeros_like(alphas[0])
     a_s = torch.where(step_failed, zero, alphas[0])[:, None]
     a_y = torch.where(step_failed, zero, alphas[1])[:, None]
     # The reference breaks before applying the update: a failed step leaves
     # the iterate untouched (safe(): 0·NaN would poison it).
-    return x + a_s * safe(dx), s + a_s * safe(ds), y + a_y * safe(dy), step_failed
+    return (x + a_s * safe(dx), s + a_s * safe(ds), y + a_y * safe(dy), step_failed,
+            (lin_failed, ls_failed))
 
 
 def _absmax(r: torch.Tensor) -> torch.Tensor:
@@ -479,24 +521,34 @@ def _kkt(rG, rH, rC):
 
 
 def _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None,
-                   gate=None) -> SolveResult:
+                   newton_solver=None, gate=None) -> SolveResult:
     """The annealed loop. ``gate`` (B,) bool, when given, runs only the lanes
     it marks; the others come back FAILED with their iterate untouched. The
-    terminal polish reuses its Newton step (and so ``tridiag_solver``)."""
+    terminal polish reuses its Newton step (and so ``tridiag_solver`` and
+    ``newton_solver``)."""
     B = theta.shape[0]
     dtype, device = x0.dtype, x0.device
     tol = options.tol
     reg = options.regularization if options.regularization is not None else tol
-    step = _make_step(mcp, options, theta, dtype, reg, tridiag_solver=tridiag_solver)
+    step = _make_step(mcp, options, theta, dtype, reg, tridiag_solver=tridiag_solver,
+                      newton_solver=newton_solver)
+    if options.fused_linesearch and options.verbose:
+        warnings.warn(
+            "fused_linesearch=True is incompatible with verbose=True (the "
+            "debug print needs the split linear/linesearch failure flags); "
+            "falling back to the unfused path.",
+            stacklevel=3,
+        )
     use_fused_ls = (
         options.fused_linesearch
         if options.fused_linesearch is not None
         else options.linear_solver in ("tridiag_pallas", "tridiag_auto")
-    )
+    ) and not options.verbose
     candidates = linesearch_candidates(options.decay, options.min_stepsize)
 
     def inner_body(x, y, s, eps):
-        """(x', y', s', F_norm, step_failed) of every lane."""
+        """(x', y', s', F_norm, step_failed, why) of every lane; why is the
+        unfused step's (lin_failed, ls_failed), None after the fused kernel."""
         rG, rH, rC, dx, dy, ds = step(x, y, s, eps)
         if use_fused_ls:
             with record_function(SPAN_LINESEARCH):
@@ -504,9 +556,9 @@ def _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None,
                     x, dx, s, ds, y, dy, rG, rH, rC,
                     tau=options.tau, candidates=candidates,
                 )
-            return x, y, s, F_norm, failed
-        x, s, y, failed = _unfused_step(options, x, dx, s, ds, y, dy)
-        return x, y, s, _kkt(rG, rH, rC), failed
+            return x, y, s, F_norm, failed, None
+        x, s, y, failed, why = _unfused_step(options, x, dx, s, ds, y, dy)
+        return x, y, s, _kkt(rG, rH, rC), failed, why
 
     where = torch.where
     x, y, s = x0, y0, s0
@@ -527,7 +579,11 @@ def _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None,
         ifailed = torch.zeros((B,), dtype=torch.bool, device=device)
         live = outer_live & (ki > eps) & (inner < options.max_inner_iters) & ~ifailed
         while _any(live):
-            xn, yn, sn, F_norm, step_failed = inner_body(xi, yi, si, eps)
+            xn, yn, sn, F_norm, step_failed, why = inner_body(xi, yi, si, eps)
+            if options.verbose:  # the unfused path: why is set
+                _report_failed(live & step_failed,
+                               "inner step failed (linear={}, linesearch={}) at eps={}",
+                               eps, *why)
             lv = live[:, None]
             xi, yi, si = where(lv, xn, xi), where(lv, yn, yi), where(lv, sn, si)
             ki = where(live & ~step_failed, F_norm, ki)
@@ -574,9 +630,9 @@ def _terminal_polish(mcp, options, step, theta, x, y, s, failed, gate=None):
     eps_p = torch.full((B,), 0.5 * tol, dtype=x.dtype, device=x.device)
 
     def true_kkt_at(x, y, s):
-        with record_function(SPAN_RESIDUAL):
+        with record_function(SPAN_RESIDUAL), matmul_precision("highest"):
             g, h = mcp.gh_batched(x, y, theta)
-        return _kkt(g, h - s, s * y)
+            return _kkt(g, h - s, s * y)
 
     def polish_live(tk, p_failed):
         live = (tk > exit_tol) & ~p_failed
@@ -589,7 +645,7 @@ def _terminal_polish(mcp, options, step, theta, x, y, s, failed, gate=None):
     live = polish_live(tk, p_failed)
     while iters < options.max_inner_iters and _any(live):
         _, _, _, dx, dy, ds = step(x, y, s, eps_p)
-        xn, sn, yn, step_failed = _unfused_step(options, x, dx, s, ds, y, dy)
+        xn, sn, yn, step_failed, _ = _unfused_step(options, x, dx, s, ds, y, dy)
         tkn = true_kkt_at(xn, yn, sn)
         lv = live[:, None]
         x, y, s = where(lv, xn, x), where(lv, yn, y), where(lv, sn, s)
@@ -642,6 +698,9 @@ def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None) -
             make_solver = lambda Gx, Gy, Hx, Hy, y, s, reg: (
                 lambda bG, bH, bC: newton_step_tridiag(
                     Gx, Gy, Hx, Hy, y, s, bG, bH, bC, reg, structure=st, algorithm=tsolve))
+        elif options.linear_solver == "gmres":
+            make_solver = functools.partial(factored_newton_solver("gmres"),
+                                            gmres_options=_gmres_options(options))
         else:
             make_solver = factored_newton_solver(options.linear_solver)
     refine_steps = int(options.refinement_steps)
@@ -729,6 +788,9 @@ def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None) -
     live = cond(kkt, iters, failed)
     while _any(live):
         xn, yn, sn, F_norm, step_failed, mu_n = body(x, y, s)
+        if options.verbose:
+            _report_failed(live & step_failed,
+                           "mehrotra step failed (non-finite direction) at mu={}", mu_n)
         lv = live[:, None]
         x, y, s = where(lv, xn, x), where(lv, yn, y), where(lv, sn, s)
         kkt = where(live & ~step_failed, F_norm, kkt)

@@ -24,6 +24,13 @@ collected by pytest; run from the repository root).
       both packages' polish_batch_dw (8 steps, tol 1e-6) from the same
       iterates: the SOLVED lanes each leaves above 1e-6, and the share of
       all lanes at 1e-6.
+
+  python tests/survey_rounding.py gmres-qp SEED B
+      The QP suite (n=m=100, sparsity 0.9; the JAX sampler, PRNGKey(SEED),
+      B draws) on the gmres tier with the suite's options (Mehrotra,
+      refinement 0, tol 1e-4, caps 25, polish) in float32 and float64, in
+      both packages: per-lane status and outer iterations, and in float64
+      the max|Δx| between them.
 """
 
 import functools
@@ -155,6 +162,29 @@ def dw_lanes(seeds):
                   f"{float(np.mean(k <= 1e-6)):.4f}", flush=True)
 
 
+def gmres_qp(seed, B):
+    from mcp_tpu.bench import qp as jqp
+    from mcp_tpu.parallel.batch import solve_batch as jax_solve_batch
+    from mcp_tpu.solver import SolverOptions as JaxOptions
+    from mcp_tpu_torch.bench import qp
+
+    opts = dict(tol=1e-4, linear_solver="gmres", algorithm="mehrotra", refinement_steps=0,
+                max_outer_iters=25, polish=True)
+    jm = jqp.generate_test_problem().mcp
+    tm = qp.generate_test_problem(device="cpu").mcp
+    th64 = np.array(jqp.generate_parameter_batch(jax.random.PRNGKey(seed), B,
+                                                 dtype=jnp.float64))
+    for dtype in (np.float32, np.float64):
+        th = th64.astype(dtype)
+        want = jax_solve_batch(jm, jnp.asarray(th), options=JaxOptions(**opts))
+        got = solve_batch(tm, torch.from_numpy(th), options=SolverOptions(**opts))
+        print(f"{dtype.__name__}: jax status {np.asarray(want.status).tolist()} outer "
+              f"{np.asarray(want.outer_iters).tolist()}; port status "
+              f"{got.status.tolist()} outer {got.outer_iters.tolist()}", flush=True)
+        if dtype is np.float64:
+            print(f"  max|dx| {float(np.abs(got.x.numpy() - np.asarray(want.x)).max()):.3e}")
+
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
     if sys.argv[1] == "cr-lanes":
@@ -163,5 +193,7 @@ if __name__ == "__main__":
         t64()
     elif sys.argv[1] == "dw-lanes":
         dw_lanes([int(a) for a in sys.argv[2:]])
+    elif sys.argv[1] == "gmres-qp":
+        gmres_qp(int(sys.argv[2]), int(sys.argv[3]))
     else:
         raise SystemExit(__doc__)

@@ -9,7 +9,8 @@ only): 2 ranks run the sharded block-tridiagonal solve, the lane-change
 T=16 ``solve_horizon_sharded`` and its gradient; 4 ranks run a dp=2 ×
 horizon=2 ``solve_batch_horizon_sharded``, ``solve_batch_sharded`` and the
 T=64 lane change on a horizon of 4 ranks. Each world size is spawned once,
-in a module-scoped fixture."""
+in a module-scoped fixture, which computes the JAX package's references
+(cached) while the ranks run."""
 
 import functools
 from types import SimpleNamespace
@@ -119,8 +120,32 @@ def two_ranks(tmp_path_factory):
         dict(kind="solve", name="solve", theta=th["solve"], options=SOLVE, horizon=16),
         dict(kind="grad", name="grad", thetas=th["grad"][None], options=GRAD, horizon=16),
     ]
-    return worker.spawn(2, tasks, tmp_path_factory.mktemp("ranks2"), device="cpu",
-                        timeout_s=300)
+    ranks = worker.start(2, tasks, tmp_path_factory.mktemp("ranks2"), device="cpu",
+                         timeout_s=300)
+    _jax_tridiag_16(), _jax_solve_16(), _jax_grad_16()
+    return ranks()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tridiag_16():
+    return _jax_tridiag(_system(16, 4, 3), 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_solve_16():
+    jm, th = _lane_change_thetas()
+    return jax.tree.map(np.asarray, jax_solve_horizon(
+        jm, jnp.asarray(th["solve"]), mesh=jax_horizon_mesh(jax.devices()[:2]),
+        options=JaxOptions(**SOLVE)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grad_16():
+    jm, th = _lane_change_thetas()
+    theta = jnp.asarray(th["grad"])
+    fn = jax_solve_fn(jm, mesh=jax_horizon_mesh(jax.devices()[:2]), options=JaxOptions(**GRAD))
+    x0, y0, s0 = jax_init(jm, theta)
+    return np.asarray(jax.grad(lambda t: jnp.sum(fn(t, x0, y0, s0).x ** 2))(theta))
 
 
 @functools.lru_cache(maxsize=None)
@@ -147,8 +172,39 @@ def four_ranks(tmp_path_factory):
         dict(kind="solve", name="t64", theta=th64, x0=x64, options=SOLVE, horizon=64,
              height=300.0),
     ]
-    return worker.spawn(4, tasks, tmp_path_factory.mktemp("ranks4"), device="cpu",
-                        timeout_s=600)
+    ranks = worker.start(4, tasks, tmp_path_factory.mktemp("ranks4"), device="cpu",
+                         timeout_s=600)
+    _jax_dp_batch(), _jax_batch_sharded(), _jax_t64()
+    return ranks()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dp_batch():
+    jm, th = _lane_change_thetas()
+    return jax.tree.map(np.asarray, jax_batch_horizon(
+        jm, jnp.asarray(th["batch"]), mesh=jax_dp_mesh(2, 2, jax.devices()[:4]),
+        options=JaxOptions(**SOLVE)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_batch_sharded():
+    jm, th = _lane_change_thetas()
+    want, n_ok = jax_batch_sharded(jm, jnp.asarray(th["batch"]),
+                                   mesh=jax_batch_mesh(jax.devices()[:4]),
+                                   options=JaxOptions(**SOLVE))
+    return jax.tree.map(np.asarray, want), int(n_ok)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_t64():
+    """The T=64 solve by the JAX package's SPIKE on 4 virtual devices and by
+    its single-device LU cyclic reduction."""
+    jm, theta, x0 = _t64()
+    th, x0 = jnp.asarray(theta), jnp.asarray(x0)
+    spike = jax_solve_horizon(jm, th, x0=x0, mesh=jax_horizon_mesh(jax.devices()[:4]),
+                              options=JaxOptions(**SOLVE))
+    cr = jax_solve(jm, th, x0=x0, options=JaxOptions(**dict(SOLVE, linear_solver="tridiag_cr")))
+    return spike, cr
 
 
 def _same_on_every_rank(ranks, name):
@@ -161,15 +217,12 @@ def _same_on_every_rank(ranks, name):
 
 def test_sharded_tridiag_solve_on_two_ranks(two_ranks):
     got = _same_on_every_rank(two_ranks, "tridiag")["x"]
-    np.testing.assert_allclose(got, _jax_tridiag(_system(16, 4, 3), 2), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got, _jax_tridiag_16(), rtol=0, atol=1e-10)
 
 
 def test_lane_change_on_two_ranks_matches_jax(two_ranks):
-    jm, th = _lane_change_thetas()
     got = _same_on_every_rank(two_ranks, "solve")
-    want = jax.tree.map(np.asarray, jax_solve_horizon(
-        jm, jnp.asarray(th["solve"]), mesh=jax_horizon_mesh(jax.devices()[:2]),
-        options=JaxOptions(**SOLVE)))
+    want = _jax_solve_16()
     assert int(got["status"]) == int(want.status) == SOLVED
     assert int(got["outer_iters"]) == int(want.outer_iters)
     # 1e-8: float64 iterates of the same algorithm, differing by rounding.
@@ -178,23 +231,16 @@ def test_lane_change_on_two_ranks_matches_jax(two_ranks):
 
 
 def test_gradient_on_two_ranks_matches_jax(two_ranks):
-    jm, th = _lane_change_thetas()
     got = _same_on_every_rank(two_ranks, "grad")
-    theta = jnp.asarray(th["grad"])
-    fn = jax_solve_fn(jm, mesh=jax_horizon_mesh(jax.devices()[:2]), options=JaxOptions(**GRAD))
-    x0, y0, s0 = jax_init(jm, theta)
-    want = np.asarray(jax.grad(lambda t: jnp.sum(fn(t, x0, y0, s0).x ** 2))(theta))
+    want = _jax_grad_16()
     assert int(got["status"][0]) == SOLVED
     # rtol 1e-6: two float64 IFT solves at solutions equal to ~1e-9.
     np.testing.assert_allclose(got["grad"][0], want, rtol=1e-6, atol=1e-8)
 
 
 def test_dp_horizon_batch_on_four_ranks_matches_jax(four_ranks):
-    jm, th = _lane_change_thetas()
     got = _same_on_every_rank(four_ranks, "batch")
-    want = jax.tree.map(np.asarray, jax_batch_horizon(
-        jm, jnp.asarray(th["batch"]), mesh=jax_dp_mesh(2, 2, jax.devices()[:4]),
-        options=JaxOptions(**SOLVE)))
+    want = _jax_dp_batch()
     np.testing.assert_array_equal(got["status"], want.status)
     assert (want.status == SOLVED).all()
     np.testing.assert_array_equal(got["outer_iters"], want.outer_iters)
@@ -202,11 +248,8 @@ def test_dp_horizon_batch_on_four_ranks_matches_jax(four_ranks):
 
 
 def test_batch_sharded_on_four_ranks_matches_jax(four_ranks):
-    jm, th = _lane_change_thetas()
     got = _same_on_every_rank(four_ranks, "batch_sharded")
-    want, n_ok = jax_batch_sharded(jm, jnp.asarray(th["batch"]),
-                                   mesh=jax_batch_mesh(jax.devices()[:4]),
-                                   options=JaxOptions(**SOLVE))
+    want, n_ok = _jax_batch_sharded()
     np.testing.assert_array_equal(got["status"], np.asarray(want.status))
     np.testing.assert_array_equal(got["outer_iters"], np.asarray(want.outer_iters))
     np.testing.assert_allclose(got["x"], np.asarray(want.x), rtol=0, atol=1e-8)
@@ -222,12 +265,10 @@ def test_lane_change_t64_on_four_ranks_matches_jax(four_ranks):
     this θ SOLVED does not bound the true residual by tol: the solver exits
     on its stale pre-step residual, and the JAX package's two solutions
     read 2.9e-4 and 3.7e-4.)"""
-    jm, theta, x0 = _t64()
+    jm, theta, _ = _t64()
     got = _same_on_every_rank(four_ranks, "t64")
-    th, x0 = jnp.asarray(theta), jnp.asarray(x0)
-    spike = jax_solve_horizon(jm, th, x0=x0, mesh=jax_horizon_mesh(jax.devices()[:4]),
-                              options=JaxOptions(**SOLVE))
-    cr = jax_solve(jm, th, x0=x0, options=JaxOptions(**dict(SOLVE, linear_solver="tridiag_cr")))
+    th = jnp.asarray(theta)
+    spike, cr = _jax_t64()
     assert int(got["status"]) == SOLVED
     for want in (spike, cr):
         assert int(want.status) == SOLVED

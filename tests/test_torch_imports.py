@@ -183,7 +183,8 @@ def test_scan_covers_the_differentiation_and_training_modules():
     the two-way sweep and the training step."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for rel in ("diff.py", "kernels/thomas_babe.py", "selection/model.py",
-                "selection/loss.py", "selection/train.py"):
+                "selection/loss.py", "selection/train.py", "parallel/tensor.py",
+                "parallel/routing.py"):
         assert f"mcp_tpu_torch/{rel}" in names
 
 

@@ -252,6 +252,18 @@ def test_schur_matrix_is_spd_on_qp_systems():
 
 
 def test_gmres_is_not_ported():
-    assert "gmres" not in linalg.NEWTON_STEPS
-    with pytest.raises(NotImplementedError, match="item 3"):
-        linalg.factored_newton_solver("gmres")
+    """The gmres tier, which raised before its port: its direct step and its
+    factored solver (Mehrotra's) against the JAX package's."""
+    arrs = _newton_inputs(seed=74)
+    reg = 1e-4
+    want = jax.vmap(lambda *a: jlinalg.NEWTON_STEPS["gmres"](*a, reg))(*_j(*arrs))
+    got = linalg.NEWTON_STEPS["gmres"](*_t(*arrs), reg)
+    kw = dict(tol=1e-9, restart=3, maxiter=2, preconditioner="jacobi")
+    want_f = jax.vmap(lambda *a: jlinalg.factored_newton_solver("gmres")(
+        *a[:6], reg, gmres_options=kw)(*a[6:]))(*_j(*arrs))
+    got_f = linalg.factored_newton_solver("gmres")(*_t(*arrs)[:6], reg, gmres_options=kw)(
+        *_t(*arrs)[6:])
+    # 1e-10: float64 GMRES of systems of condition ~1e2, summed in another
+    # order.
+    for g, w in zip(got + got_f, tuple(want) + tuple(want_f)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-10)

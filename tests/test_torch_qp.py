@@ -267,20 +267,43 @@ def test_gj_tier_on_a_non_affine_mcp_warns():
         solve_batch(tm, torch.from_numpy(thetas[:1]), options=SolverOptions(**QP))
 
 
-@pytest.mark.parametrize(
-    "override, match",
-    [
-        (dict(linear_solver="gmres"), "item 3"),
-        (dict(retry=1, retry_linear_solver="gmres"), "item 3"),
-        (dict(verbose=True), "item 3"),
-        (dict(matmul_precision="high"), "item 3"),
-        (dict(algorithm="hybrid", linear_solver="gmres"), "item 3"),
-    ],
-)
-def test_unported_options_raise(override, match):
+#: The options that once raised, each now solved by the port and held to
+#: the JAX package. Where the JAX package's iterates for the option equal
+#: its suite solve's on the CPU, that cached solve is the reference: a
+#: retry round after every lane SOLVED is gated off (its result is the first
+#: pass's), verbose only prints (nothing fails here), and XLA's CPU backend
+#: computes float64 products alike at every precision.
+PORTED_OPTIONS = [
+    (dict(linear_solver="gmres"), False),
+    (dict(retry=1, retry_linear_solver="gmres"), True),
+    (dict(verbose=True), True),
+    (dict(matmul_precision="high"), True),
+    (dict(algorithm="hybrid", linear_solver="gmres"), False),
+]
+
+
+@pytest.mark.parametrize("override, same_as_suite", PORTED_OPTIONS,
+                         ids=[f"override{i}-item 3" for i in range(len(PORTED_OPTIONS))])
+def test_unported_options_raise(override, same_as_suite):
+    """Each option runs (it raised before its port) and agrees with the JAX
+    package: status, outer iterations, x to 1e-8. matmul_precision="high"
+    equals "highest" on the CPU bit for bit, and leaves the precision
+    flags as it found them."""
+    opts = {**QP, **override}
+    want, base = _solve_both(tuple(sorted(QP.items())))
+    if not same_as_suite:
+        want, _ = _solve_both(tuple(sorted(opts.items())))
+    flags = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     _, tm, thetas = _setup()
-    with pytest.raises(NotImplementedError, match=match):
-        solve_batch(tm, torch.from_numpy(thetas[:1]), options=SolverOptions(**{**QP, **override}))
+    got = solve_batch(tm, torch.from_numpy(thetas), options=SolverOptions(**opts))
+    _assert_same_solve(want, got)
+    np.testing.assert_allclose(got.x.numpy(), want.x, rtol=0, atol=1e-8)
+    assert flags == (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+    if "matmul_precision" in override:
+        for g, b in zip(got, base):
+            torch.testing.assert_close(g, b, rtol=0, atol=0)
 
 
 def test_bad_options_raise():
