@@ -64,9 +64,21 @@ before it and read just after:
     the phase, the CPU's float64 solve of two ground-truth scenarios, the
     three heuristic modes' sweep (2 steps) with one serial rollout held
     against its batched one, the real-data rollout of
-    tests/fixtures/ped/scenario1.csv and the three CLIs
+    tests/fixtures/ped/scenario1.csv and the five CLIs that solve
     (``python -m mcp_tpu_torch.scripts.datagen|train_selection|
-    evaluate_selection``); every sweep file goes through the metrics;
+    evaluate_selection|loss_landscape|time_test``, each printing its
+    numbers and then a line for each figure it cannot draw without
+    matplotlib); every sweep file goes through the metrics;
+  * in the 2-rank spawn of the horizon paths, the dry run's data-parallel
+    training step (``selection.dp.dp_task``: MLP → masked-game solves →
+    the IFT gradient averaged over the ranks → SGD) against one rank;
+  * the analysis suite: the ground truth of one native scenario, the mask
+    loss landscape (N=4, horizon 30, a grid of 11 x 11 = 121 lanes in one
+    batch, float32) on "tridiag_pallas" (K7a on its group route, K2) and on
+    "tridiag" (no kernel), and beside them in a child process the
+    N-scaling run at N = 2, 3, 4 (horizon 30, batch 1, K7a and K2); K7a
+    and K2 are held against their plain versions
+    at the landscape's shapes (121, 30, 40) and (121, 1200, 1470);
 
 certifies each result with the true KKT residual, checks a few lanes
 against a float64 CPU reference, checks the training gradient against
@@ -2062,6 +2074,9 @@ def phase_k7a(n4, device):
                                           dtype=f64, device=device)
     check(TD.kernel_mode(FLAG_B, FLAG_T, 40, 4) == "babe" and TD.kernel_mode(64, 20, 20, 4)
           == "babe", "K7a: tier tridiag_pallas does not route the checked shapes to K7a")
+    check(TD.kernel_mode(AN_LANES, FLAG_T, 40, 4) == "babe",
+          "K7a: tier tridiag_pallas does not route the landscape's batch to K7a")
+    landscape = flagship(4, batch=AN_LANES, device=device)
     bands = err = None
     lane20 = {}
     for dtype in (f32, f64):
@@ -2069,6 +2084,9 @@ def phase_k7a(n4, device):
         what = "N=4 first Newton step ({})".format("x".join(map(str, real[0].shape[:3])))
         e = route_check("babe", "qr", what, real)
         route_check("babe", "qr", what, real, route="block")
+        route_check("babe", "qr", f"N=4 first Newton step, the landscape's batch "
+                    f"({AN_LANES}x{FLAG_T}x40)", first_newton_bands(
+                        landscape.mcp, landscape.thetas.to(dtype), landscape.x0.to(dtype)))
         if dtype == f32:
             bands, err = real, e
         for T, b in ((2, 40), (3, 40), (21, 20), (31, 40)):
@@ -2898,10 +2916,11 @@ def phase_horizon_paths(device, out_dir, k6_route):
     Returns (K6's launches, the tp and routed launches)."""
     import torch
 
-    from mcp_tpu_torch import SOLVED, SolverOptions, auto_tightening_rate, solve_batch
+    from mcp_tpu_torch import SOLVED, SolverOptions, auto_tightening_rate, dryrun, solve_batch
     from mcp_tpu_torch.bench import horizon as worker
     from mcp_tpu_torch.bench import lane_change as lc
     from mcp_tpu_torch.bench.harness import true_kkt_errors
+    from mcp_tpu_torch.selection.dp import dp_inputs
 
     bench = lc.generate_test_problem(horizon=10, device=device)
     mcp = bench.parametric_game.mcp
@@ -2914,6 +2933,7 @@ def phase_horizon_paths(device, out_dir, k6_route):
     tasks = [
         dict(kind="batch", name="batch", thetas=thetas.cpu().numpy(), options=options,
              horizon=10, dp=1, hz=2, warm=HZ_WARM),
+        dict(kind="dp_train", name="dryrun_dp", **dp_inputs(2)),
         dict(kind="grad", name="grad", thetas=t16, options=grad_opts, horizon=16),
         dict(kind="batch_sharded", name="batch_sharded", thetas=thetas[:16].cpu().numpy(),
              options=options, horizon=10),
@@ -2931,6 +2951,17 @@ def phase_horizon_paths(device, out_dir, k6_route):
     for r0, r1 in zip(ranks[0]["routed"]["results"], ranks[1]["routed"]["results"]):
         for k, v in r0.items():
             check(np.array_equal(r1[k], v, equal_nan=True), f"routed: ranks differ in {k}")
+
+    # The dry run's data-parallel training step (MLP → masked-game solves →
+    # IFT gradient averaged over the ranks → SGD) against one rank.
+    dp0, dp1 = (r["dryrun_dp"] for r in ranks)
+    check(dp0["loss"] == dp1["loss"] and all(np.array_equal(a, b) for a, b in
+                                             zip(dp0["params"], dp1["params"])),
+          "dp training step: the ranks' updates differ")
+    try:
+        log("  " + dryrun.check_dp(dp0, 2))
+    except AssertionError as exc:
+        raise PhaseFailed(str(exc)) from None
 
     # The horizon batch.
     got = ranks[0]["batch"]
@@ -3753,8 +3784,8 @@ def phase_new_timing(k6, k8a, k8b):
 # all started with the phase: the CPU float64 reference solve of two scenarios
 # (SEL_REF_THREADS threads), the heuristic modes' sweep with the serial
 # rollout it is held against, the real-data rollout
-# (tests/fixtures/ped/scenario1.csv, its recorded 30 steps), and the three
-# CLIs one after another. A child redraws the scenarios from the same seed.
+# (tests/fixtures/ped/scenario1.csv, its recorded 30 steps), and the CLIs
+# (``run_selection_clis``). A child redraws the scenarios from the same seed.
 SEL_N, SEL_T = 4, 30
 SEL_OPTIONS = dict(linear_solver="tridiag_pallas", sensitivity_solver="tridiag",
                    tightening_rate=0.05, polish=True)
@@ -3785,7 +3816,16 @@ SEL_CLI = (("datagen", "--out", "{d}/data", "--players", "2", "--horizon", "4", 
            ("evaluate_selection", "--data", "{d}/data", "--players", "2", "--horizon", "4",
             "--input-horizon", "2", "--steps", "2", "--scenarios", "2", "--model",
             "{d}/run/best_model.pkl", "--modes", "All", "Neural Network Partial Rank",
-            "--tier", "tridiag_pallas", "--out", "{d}/eval"))
+            "--tier", "tridiag_pallas", "--out", "{d}/eval"),
+           # The analysis CLIs (phase 37's checks): the landscape of the first
+           # training example over the two players' masks (grid 11: 121 lanes),
+           # and the N-scaling run at N=2. Neither waits for training:
+           # ``run_selection_clis`` starts each as soon as its input exists.
+           ("loss_landscape", "--data", "{d}/data", "--players", "2", "--horizon", "4",
+            "--input-horizon", "2", "--mask-indices", "0", "1", "--tier", "tridiag_pallas",
+            "--out", "{d}/landscape.png"),
+           ("time_test", "--players", "2", "--horizon", "4", "--repeats", "1", "--tier",
+            "tridiag_pallas", "--json-out", "{d}/time.json", "--out", "{d}/time_plot.png"))
 
 
 @contextlib.contextmanager
@@ -3921,29 +3961,51 @@ def selection_child(kind, out_dir, device="cuda"):
     (out / "stage.json").write_text(json.dumps(info))
 
 
-def run_selection_clis(work, procs, out, stop):
-    """The three CLIs one after another as child processes (each added to
-    ``procs`` under ``stop``'s lock), until one fails or ``stop`` is set;
-    their return codes, seconds and last lines go to ``out``."""
+def run_selection_cli(name, work, procs, out, stop):
+    """One CLI of SEL_CLI as a child process (added to ``procs`` under
+    ``stop``'s lock) unless ``stop`` is set; its return code, seconds and
+    last lines go to ``out[name]``. True if it ran and exited 0."""
     root = Path(__file__).resolve().parent
-    for name, *args in SEL_CLI:
-        t0 = time.perf_counter()
-        with stop.lock:
-            if stop.is_set():
-                return
-            p = subprocess.Popen([sys.executable, "-m", f"mcp_tpu_torch.scripts.{name}",
-                                  *(a.format(d=work) for a in args)], cwd=root,
-                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            procs.append(p)
-        try:
-            stdout, stderr = p.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            stdout, stderr = p.communicate()
-        out[name] = {"rc": p.returncode, "seconds": time.perf_counter() - t0,
-                     "last": (stdout.strip().splitlines() or [""])[-1], "stderr": stderr[-2000:]}
-        if p.returncode != 0:
-            return
+    args = next(rest for cli, *rest in SEL_CLI if cli == name)
+    t0 = time.perf_counter()
+    with stop.lock:
+        if stop.is_set():
+            return False
+        p = subprocess.Popen([sys.executable, "-m", f"mcp_tpu_torch.scripts.{name}",
+                              *(a.format(d=work) for a in args)], cwd=root,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(p)
+    try:
+        stdout, stderr = p.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        stdout, stderr = p.communicate()
+    out[name] = {"rc": p.returncode, "seconds": time.perf_counter() - t0,
+                 "lines": stdout.strip().splitlines()[-3:], "stderr": stderr[-2000:]}
+    return p.returncode == 0
+
+
+def run_selection_clis(work, procs, out, stop):
+    """The CLIs of SEL_CLI as child processes (``run_selection_cli``):
+    ``time_test``, which needs no data, from the start; ``datagen``, and
+    when it has written its data, ``loss_landscape`` beside
+    ``train_selection`` → ``evaluate_selection``. A chain stops at its
+    first failure or when ``stop`` is set."""
+    import threading
+
+    def chain(*names):
+        return all(run_selection_cli(name, work, procs, out, stop) for name in names)
+
+    side = [threading.Thread(target=chain, args=("time_test",))]
+    side[0].start()
+    try:
+        if chain("datagen"):
+            side.append(threading.Thread(target=chain, args=("loss_landscape",)))
+            side[-1].start()
+            chain("train_selection", "evaluate_selection")
+    finally:
+        for t in side:
+            t.join()
 
 
 def stage_start(secs, name):
@@ -3994,7 +4056,7 @@ def phase_selection(device):
     phase: the CPU's float64 solve of two scenarios (held against the ground
     truth), ``evaluate_modes`` of the heuristic modes and the serial
     ``evaluate_scenario`` (held against its batched rollout),
-    ``evaluate_real_scenarios``, and the three CLIs. Every stage runs with
+    ``evaluate_real_scenarios``, and the five CLIs. Every stage runs with
     the launch counts set to 0 just before it and read just after; every
     evaluation file goes through ``analyze_result``. Returns the phase's
     stats (printed as one JSON line)."""
@@ -4116,13 +4178,28 @@ def phase_selection(device):
         check(r is not None, f"selection: the CLI {name} did not run")
         secs["cli (child)"][name] = r["seconds"]
         log(f"  python -m mcp_tpu_torch.scripts.{name}: rc {r['rc']} in {r['seconds']:.1f} s; "
-            f"{r['last']}")
+            + " | ".join(r["lines"]))
         check(r["rc"] == 0, f"selection: {name} failed: {r['stderr']}")
     d = work / "cli"
     check(any((d / "data" / "train").iterdir()) and (d / "run" / "losses.json").exists()
           and (d / "run" / "best_model.pkl").exists()
           and json.loads((d / "eval" / "metrics.json").read_text()),
           "selection: the CLIs wrote no data, checkpoint, losses or metrics")
+    # The analysis CLIs print their numbers, then draw each figure or (with
+    # no matplotlib installed) print one line saying it was not written.
+    scaling = json.loads((d / "time.json").read_text())
+    landscape = cli["loss_landscape"]["lines"]
+    check(list(scaling) == ["2"] and scaling["2"] > 0
+          and json.loads(cli["time_test"]["lines"][-2]) == scaling,
+          f"analysis: time_test wrote {scaling}")
+    check(landscape[-2].startswith("loss range") and landscape[-2].endswith("/121"),
+          f"analysis: loss_landscape printed {landscape}")
+    for name, fig in (("train_selection", "run/loss_curves.png"), ("evaluate_selection",
+                      "eval/radar.png"), ("loss_landscape", "landscape.png"),
+                      ("time_test", "time_plot.png")):
+        last = cli[name]["lines"][-1]
+        check((d / fig).exists() or last == f"{d / fig} not written: matplotlib is not "
+              "installed", f"analysis: {name} neither wrote {fig} nor said so: {last!r}")
 
     stats.update(seconds=secs, launches=launches)
     return stats
@@ -4261,6 +4338,196 @@ def _selection_stages(runner, work, device, secs, launches, stats):
     return gt, results, metrics
 
 
+# -- the analysis suite ----------------------------------------------------------
+
+# The mask loss landscape at its CLI's defaults (scripts/loss_landscape.py):
+# the N=4 masked game at horizon 30, a grid of 11 x 11 over the masks of
+# players 2 and 3 (121 lanes, one batched solve, float32), the loss over the
+# last 10 steps of the ego's plan, on the runner of ``--tier
+# tridiag_pallas`` (K7a on its group route, the fused K2), against the
+# ground truth of one scenario of the native sampler (seed 0). Then the same
+# grid on tier "tridiag" (the plain block-Thomas and the unfused linesearch:
+# no kernel), and the N-scaling run of scripts/time_test.py at N = 2, 3, 4
+# (horizon 30, batch 1, 3 timed solves after a warm one) on
+# "tridiag_pallas" (K7a at b = 20, 30, 40, and K2, at B=1). The N-scaling
+# run needs nothing of another stage: it runs in a child process beside the
+# ground truth and the landscapes (the script took 1,129.4 s on a slow host
+# with it in this process; started with phase 36 instead, it lengthened
+# that phase by as much as it saved here; PERF.md §6).
+AN_N, AN_T, AN_GRID, AN_INPUT_HORIZON, AN_MASK = 4, 30, 11, 10, (1, 2)
+AN_LANES = AN_GRID * AN_GRID
+AN_OPTIONS = dict(linear_solver="tridiag_pallas", sensitivity_solver="tridiag")
+AN_SCALING = dict(player_counts=(2, 3, 4), horizon=30, batch=1, repeats=3)
+# The (1, 1) corner's loss against the sparsity weight: measured |Δ| =
+# 1.097e-05 on the card (the similarity term's square-root floor, 11 x 1e-6,
+# in float32; PERF.md §6), held to about ten times it. The plain
+# tier's losses on the lanes both tiers solve: measured max|Δ| = 1.311e-06
+# (K7a's two-way QR sweep against the LU block-Thomas, float32), held to ten
+# times it; the count of lanes whose status differs is printed (0 measured).
+AN_CORNER_TOL, AN_PLAIN_LOSS_TOL = 1e-4, 1.3e-5
+
+
+@contextlib.contextmanager
+def runner_solves():
+    """While active, the status tensor of every batched solve of a
+    ``MaskedGameRunner`` (``selection.runner.solve_batch``) is appended to
+    the list it yields, where it stays on the device: the wrapper adds no
+    copy and no synchronize to a timed solve. The solves are unchanged."""
+    from mcp_tpu_torch.selection import runner as R
+
+    real = R.solve_batch
+    statuses = []
+
+    def solve(*args, **kw):
+        res = real(*args, **kw)
+        statuses.append(res.status)
+        return res
+
+    R.solve_batch = solve
+    try:
+        yield statuses
+    finally:
+        R.solve_batch = real
+
+
+def scaling_child(out_dir, device="cuda"):
+    """The N-scaling stage of ``phase_analysis`` in a child process
+    (``python3 -c``): the launch counts set to 0, ``n_scaling_experiment``
+    (AN_SCALING, "tridiag_pallas"), the counts read; its seconds per solve,
+    the status of every solve, the counts and routes and the stage's
+    seconds go to ``out_dir/stage.json``."""
+    import torch
+
+    from mcp_tpu_torch import SolverOptions
+    from mcp_tpu_torch.analysis import n_scaling_experiment
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with runner_solves() as solves:
+        per_n = n_scaling_experiment(**AN_SCALING, options=SolverOptions(**AN_OPTIONS),
+                                     verbose=False, device=device)
+    torch.cuda.synchronize()
+    info = dict(seconds_per_solve={str(k): v for k, v in per_n.items()},
+                statuses=[int(v) for st in solves for v in st.tolist()],
+                seconds=time.perf_counter() - t0, counts=read_counts(), routes=read_routes())
+    (Path(out_dir) / "stage.json").write_text(json.dumps(info))
+
+
+def start_scaling_child():
+    """``scaling_child`` as a child process; ``phase_analysis`` reads it."""
+    work = Path(rank_dir("scaling"))
+    with open(work / "stderr.txt", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; chip_smoke.scaling_child(sys.argv[1])", str(work)],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.DEVNULL, stderr=err)
+    return proc, work
+
+
+def phase_analysis(n4, device, scaling):
+    """The analysis suite through its entry points (see AN_N): the ground
+    truth of one scenario (``generate_ground_truth``), ``mask_loss_landscape``
+    on "tridiag_pallas" and on "tridiag", each with the launch counts set to
+    0 just before it and read just after, and then the result of
+    ``n_scaling_experiment`` from its child (``start_scaling_child``).
+    Returns the phase's stats (printed as one JSON line)."""
+    from mcp_tpu_torch import SOLVED, SolverOptions
+    from mcp_tpu_torch.analysis import mask_loss_landscape
+    from mcp_tpu_torch.selection import DEFAULT_WEIGHTS, generate_ground_truth
+    from mcp_tpu_torch.selection import generate_scenarios
+
+    runner = dataclasses.replace(n4.runner, options=SolverOptions(**AN_OPTIONS))
+    mcp = runner.parametric_game.mcp
+    n, m = mcp.unconstrained_dimension, mcp.constrained_dimension
+    secs, launches, stats = {}, {}, {}
+    scenarios = generate_scenarios(num_scenarios=1, num_players=AN_N, seed=0, backend="native")
+    stage_start(secs, "ground_truth")
+    examples = generate_ground_truth(runner, scenarios, rank_dir("analysis"))
+    stage_end(secs, "ground_truth")
+    check(len(examples) == 1, "analysis: the scenario's ground truth did not solve")
+    ex = examples[0]
+
+    def landscape(options):
+        return mask_loss_landscape(dataclasses.replace(runner, options=SolverOptions(**options)),
+                                   ex.initial_states, ex.goals, ex.trajectories[ex.ego_index],
+                                   mask_indices=AN_MASK, grid_points=AN_GRID,
+                                   input_horizon=AN_INPUT_HORIZON)
+
+    stage_start(secs, "landscape")
+    out = landscape(AN_OPTIONS)
+    counts, routes = stage_end(secs, "landscape")
+    launches["landscape"] = stage_launches("landscape", counts, routes, AN_LANES, n, m)
+    stage_start(secs, "landscape_plain")
+    plain = landscape(dict(AN_OPTIONS, linear_solver="tridiag"))
+    counts, _ = stage_end(secs, "landscape_plain")
+    check(all(total(c) == 0 for c in counts.values()),
+          f"analysis: the plain tier launched a kernel {counts}")
+
+    losses, statuses = out["losses"], out["statuses"]
+    solved = statuses == SOLVED
+    both = solved & (plain["statuses"] == SOLVED)
+    differ = int((statuses != plain["statuses"]).sum())
+    plain_gap = float(np.abs(losses - plain["losses"])[both].max()) if both.any() else 0.0
+    # The (1, 1) corner: every mask 1, the ground truth's own game. Its
+    # similarity term vanishes, leaving the sparsity weight (mean of the
+    # three other players' masks, all 1) and no binariness.
+    corner = float(losses[-1, -1])
+    corner_gap = abs(corner - DEFAULT_WEIGHTS[1])
+    stats["landscape"] = dict(
+        lanes=AN_LANES, solved=int(solved.sum()), plain_solved=int((plain["statuses"]
+                                                                   == SOLVED).sum()),
+        lanes_whose_status_differs=differ, max_abs_loss_gap_both_solved=plain_gap,
+        loss_min=float(losses.min()), loss_max=float(losses.max()), corner_loss=corner,
+        corner_gap=corner_gap, seconds=secs["landscape"],
+        plain_seconds=secs["landscape_plain"])
+    log(f"  landscape ({AN_LANES} lanes, N={AN_N}, horizon {AN_T}, tridiag_pallas): "
+        f"{int(solved.sum())} SOLVED, loss in [{losses.min():.6f}, {losses.max():.6f}], "
+        f"(1, 1) corner {corner!r} (|Δ| from the sparsity weight {corner_gap:.3e}, tol "
+        f"{AN_CORNER_TOL:g}), {secs['landscape']:.1f} s; tier tridiag: "
+        f"{int((plain['statuses'] == SOLVED).sum())} SOLVED, {differ} lanes whose status "
+        f"differs, max|Δ loss| over the lanes both solve {plain_gap:.3e} (tol "
+        f"{AN_PLAIN_LOSS_TOL:g}), {secs['landscape_plain']:.1f} s; launches "
+        f"{launches['landscape']}")
+    check(np.isfinite(losses).all() and np.isfinite(plain["losses"]).all(),
+          "analysis: a landscape loss is not finite")
+    check(bool(solved[-1, -1]) and corner_gap <= AN_CORNER_TOL,
+          f"analysis: the (1, 1) corner's loss {corner} is not the sparsity weight")
+    check(plain_gap <= AN_PLAIN_LOSS_TOL,
+          f"analysis: the landscape differs from tier tridiag's by {plain_gap:.3e}")
+
+    proc, work = scaling
+    try:
+        proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    check(proc.returncode == 0, "analysis: the N-scaling child failed: "
+          + (work / "stderr.txt").read_text()[-2000:])
+    child = json.loads((work / "stage.json").read_text())
+    counts, routes, every = child["counts"], child["routes"], child["statuses"]
+    secs["n_scaling (child)"] = child["seconds"]
+    launches["n_scaling"] = {"babe": counts["babe"]["qr"], "babe_routes": routes["babe"],
+                             "linesearch": counts["linesearch"],
+                             "linesearch_routes": routes["linesearch"]}
+    stats["n_scaling"] = {"seconds_per_solve": child["seconds_per_solve"],
+                          "solves": len(every), "solved": every.count(SOLVED),
+                          "seconds": child["seconds"]}
+    log(f"  n_scaling_experiment{AN_SCALING['player_counts']} (horizon "
+        f"{AN_SCALING['horizon']}, batch 1, tridiag_pallas; child process sharing the card "
+        f"with the landscapes): least seconds of a solve "
+        f"{json.dumps(child['seconds_per_solve'])}, "
+        f"{every.count(SOLVED)} of {len(every)} solves SOLVED, {child['seconds']:.1f} s, "
+        f"launches {launches['n_scaling']}")
+    check(len(every) == len(AN_SCALING["player_counts"]) * (AN_SCALING["repeats"] + 1)
+          and every.count(SOLVED) == len(every), "analysis: an N-scaling solve did not solve")
+    check(launches["n_scaling"]["babe"] > 0 and launches["n_scaling"]["linesearch"] > 0
+          and routes["babe"]["group"] == total(counts["babe"])
+          and total(counts["thomas"]) == total(counts["cr"]) == 0,
+          f"analysis: N-scaling launched {counts}")
+    stats.update(seconds=secs, launches=launches)
+    return stats
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4322,13 +4589,14 @@ def main() -> int:
     device_time("linesearch_update", kernels, main_profile, K2_KERNEL)
     phase("12: profile of one QP batch")
     phase_profile(qp_mcp, qp_options, qp_stack[0])
-    phase("13: K3 (cyclic reduction), and K2 at the flagship shapes, vs plain")
+    phase("13: K3 (cyclic reduction), and K2 at the flagship and landscape shapes, vs plain")
     n4, n10 = flagship(4), flagship(10)
     k3_bands, k3_errs = phase_k3(real_bands, n4, n10, device)
     flag_shapes = [(FLAG_B, s.mcp.unconstrained_dimension, s.mcp.constrained_dimension)
                    for s in (n4, n10)]
     check(tuple(flag_shapes) == K2_SHAPES[1:], f"K2: the flagships' shapes are {flag_shapes}")
-    phase_k2(device, flag_shapes)
+    # and the N=4 loss landscape's batch of AN_LANES (phase 37).
+    phase_k2(device, [*flag_shapes, (AN_LANES, *flag_shapes[0][1:])])
     phase("14: N=4 flagship path")
     n4_options, n4_stack, n4_res, n4_stats = phase_n4_path(n4)
     phase("15: N=10 flagship path")
@@ -4344,7 +4612,8 @@ def main() -> int:
     phase_profile(n10.mcp, dataclasses.replace(n10_options, max_outer_iters=N10_PROFILE_OUTER,
                                                max_inner_iters=N10_PROFILE_INNER),
                   n10.thetas, x0=n10.x0)
-    phase("20: K7a (two-way sweep), and K1 on the padded route, vs plain")
+    phase("20: K7a (two-way sweep, and at the landscape's batch), and K1 on the padded route, "
+          "vs plain")
     k7a_bands, k7a_err, lane20 = phase_k7a(n4, device)
     phase(f"21: training path (N=4, horizon 30, batch {TRAIN_B}, tridiag_pallas)")
     train, ift_bands, train_launches, _ = phase_train_path(device)
@@ -4405,12 +4674,24 @@ def main() -> int:
     phase(f"36: the player-selection pipeline (N={SEL_N}, horizon {SEL_T}, tridiag_pallas)")
     selection = phase_selection(device)
     log("  selection pipeline: " + json.dumps(selection))
+    phase(f"37: the analysis suite (the {AN_LANES}-lane N={AN_N} loss landscape, and "
+          "N-scaling in a child beside it)")
+    scaling = start_scaling_child()
+    try:
+        analysis = phase_analysis(n4, device, scaling)
+    except BaseException:
+        scaling[0].kill()
+        scaling[0].wait()
+        raise
+    log("  analysis suite: " + json.dumps(analysis))
     for entry in kernels:
-        # What each stage of the selection pipeline launched of K7a and K2.
+        # What each stage of the selection pipeline and of the analysis
+        # suite launched of K7a and K2.
         key = {"babe_thomas_solve": "babe", "linesearch_update": "linesearch"}.get(entry["name"])
         if key:
             entry["selection_launches"] = {st: c[key] for st, c in selection["launches"].items()
                                            if key in c}
+            entry["analysis_launches"] = {st: c[key] for st, c in analysis["launches"].items()}
     for entry in kernels:
         # What the solver-option runs (phase 30c) and the tp and routed
         # ranks (phase 31) launched of K1, K2 and K4a.

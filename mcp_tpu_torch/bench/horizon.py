@@ -1,5 +1,5 @@
 """Rank worker of the horizon-sharded, batch-sharded, tensor-parallel and
-routed solves.
+routed solves, and of the dry run's data-parallel training step.
 
 ``spawn(world, tasks, out_dir)`` (or ``start``, which returns before the
 ranks end) starts ``world`` ranks with
@@ -70,13 +70,18 @@ def _problem(horizon: int, height: float, device):
 
 def _build(problem: dict, device):
     """The MCP of a problem spec: ``{"kind": "lane_change", "horizon": T[,
-    "height": h]}`` or ``{"kind": "qp", "num_primals": n,
-    "num_inequalities": m}``; ``"assume_hy_zero": True`` marks H free of y
-    (the condensed IFT's elimination)."""
+    "height": h]}``, ``{"kind": "qp", "num_primals": n,
+    "num_inequalities": m}`` or the dry run's QP ``{"kind": "dryrun_qp"[,
+    "shift": c]}``; ``"assume_hy_zero": True`` marks H free of y (the
+    condensed IFT's elimination)."""
     spec = dict(problem)
     kind, hy_zero = spec.pop("kind"), spec.pop("assume_hy_zero", False)
     if kind == "lane_change":
         mcp = _problem(spec["horizon"], spec.get("height", 50.0), device).parametric_game.mcp
+    elif kind == "dryrun_qp":
+        from .qp import dryrun_qp
+
+        mcp = dryrun_qp(spec.get("shift", 0.0))
     else:
         from . import qp
 
@@ -226,9 +231,17 @@ def task_routed(*, buckets, device):
             "launches": _counts()}
 
 
+def task_dp_train(*, device, **inputs):
+    """The dry run's data-parallel training step (``selection.dp.dp_task``:
+    the keywords of ``selection.dp.dp_inputs`` and ``dtype``)."""
+    from ..selection.dp import dp_task
+
+    return dp_task(**inputs, device=device)
+
+
 TASKS = {"tridiag": task_tridiag, "solve": task_solve, "batch": task_batch,
          "grad": task_grad, "batch_sharded": task_batch_sharded, "lu_tp": task_lu_tp,
-         "tp": task_tp, "routed": task_routed}
+         "tp": task_tp, "routed": task_routed, "dp_train": task_dp_train}
 
 
 def run_rank(rank: int, world: int, out_dir: str, tasks: list, device: str, backend: str,

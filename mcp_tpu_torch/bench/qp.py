@@ -112,3 +112,29 @@ def generate_parameter_batch(
 def generate_random_parameter(generator: torch.Generator, **kwargs) -> Tensor:
     """One θ, (p,); see ``generate_parameter_batch``."""
     return generate_parameter_batch(generator, 1, **kwargs)[0]
+
+
+# The dry run's QP (``dryrun.py``'s tp and ep axes): G = Mx − θ − Aᵀy
+# (+ shift·x), H = Ax − b, M = PPᵀ + nI, from numpy's RandomState(0) as the
+# JAX package draws it.
+DRYRUN_QP_N, DRYRUN_QP_M = 12, 6
+
+
+def dryrun_qp(shift: float = 0.0) -> PrimalDualMCP:
+    """The dry run's QP (see DRYRUN_QP_N): G = Mx − θ − Aᵀy + shift·x,
+    H = Ax − b."""
+    import numpy as np
+
+    from .._device import const
+
+    n, m = DRYRUN_QP_N, DRYRUN_QP_M
+    rng = np.random.RandomState(0)
+    P = rng.randn(n, n)
+    M = (P @ P.T + n * np.eye(n)).astype(np.float32)
+    A = rng.randn(m, n).astype(np.float32)
+    b = rng.randn(m).astype(np.float32)
+    c = lambda a, x: const(a, x.dtype, x.device)
+    return PrimalDualMCP.from_gh(
+        lambda x, y, t: c(M, x) @ x - t - c(A, x).T @ y + shift * x,
+        lambda x, y, t: c(A, x) @ x - c(b, x),
+        unconstrained_dimension=n, constrained_dimension=m, parameter_dimension=n)

@@ -1,8 +1,10 @@
 """Build the CUDA sources under ``csrc/`` with nvcc at first use and load them
 with ctypes.
 
-Each ``csrc/<name>.cu`` becomes ``build/mcp_tpu_torch/<name>-<hash>.so``
-under the repository root, named after a hash of the source, of every header
+Each ``csrc/<name>.cu`` becomes ``<name>-<hash>.so`` in
+``utils.devices.persistent_cache_dir()`` (``build/mcp_tpu_torch/`` under the
+repository root, or ``MCPTPU_CACHE_DIR`` where that is set), named after a
+hash of the source, of every header
 it includes from ``csrc/`` (``#include "..."``, followed through headers) and
 of the flags, so an edit of any of them rebuilds. Nothing here runs at import: the first CUDA tensor that
 reaches a kernel wrapper builds its library (``build`` compiles several
@@ -23,8 +25,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils.devices import persistent_cache_dir
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mcp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,7 +73,7 @@ def library_path(name: str) -> Path:
     for path, text in _sources(CSRC / f"{name}.cu", {}).items():
         h.update(path.name.encode() + b"\0" + text)
     h.update(" ".join(NVCC_FLAGS).encode() + b"\0" + str(PARTS.get(name, 1)).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return Path(persistent_cache_dir()) / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, str]:
@@ -78,7 +81,7 @@ def build(names=SOURCES) -> dict[str, str]:
     processes at once (a source of PARTS one per part, then one link).
     Returns the compiler output (ptxas register and shared-memory report) of
     each source compiled; raises on a failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    Path(persistent_cache_dir()).mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = {}
     for name in names:

@@ -8,7 +8,8 @@ duals couple adjacent steps. With T time blocks of size b the factorization
 costs O(T·b³) instead of O((Tb)³).
 
 Batch convention: the solver-path functions (``reconstruct_bands``,
-``gh_banded_fast``, ``banded_newton_step_compressed``, ``banded_jac_mv``,
+``gh_banded_fast``, ``banded_newton_step``, ``banded_newton_step_compressed``,
+``banded_jac_mv``,
 ``block_thomas_solve``, ``block_thomas_solve_multi``,
 ``block_cyclic_reduction_solve``, ``extract_blocks``, ``tridiag_solve_permuted``)
 take a leading batch axis B on every
@@ -125,14 +126,13 @@ def tridiag_solve_permuted(A: Tensor, rhs: Tensor, structure: TimeStructure, *,
     """Solve A x = rhs over a batch, A (B, n, n), rhs (B, n), by permuting
     to time-major block-tridiagonal form (entries of A outside the band are
     ignored: they are structurally zero for trajectory-game Schur systems)
-    and the block-tridiagonal solve ``algorithm`` (diag, lower, upper, rhs)
-    → x, default ``block_thomas_solve``; its operands are contiguous."""
+    and the block-tridiagonal solve ``algorithm`` (see ``_band_solver``;
+    default ``block_thomas_solve``); its operands are contiguous."""
     perm, inv = (const(a, torch.long, A.device) for a in _column_permutation(structure))
     T, b = structure.num_blocks, structure.block_size
     diag, lower, upper = extract_blocks(A[:, perm][:, :, perm], T, b)
-    solver = block_thomas_solve if algorithm is None else algorithm
-    x = solver(diag.contiguous(), lower.contiguous(), upper.contiguous(),
-               rhs[:, perm].reshape(-1, T, b).contiguous())
+    x = _band_solver(algorithm)(diag.contiguous(), lower.contiguous(), upper.contiguous(),
+                                rhs[:, perm].reshape(-1, T, b).contiguous())
     return x.reshape(x.shape[0], -1)[:, inv]
 
 
@@ -419,6 +419,60 @@ def build_affine_bands(
     return ab
 
 
+def _band_solver(algorithm):
+    """The block-tridiagonal solve (diag, lower, upper, rhs) → x named by
+    ``algorithm``: "thomas" (or None) for ``block_thomas_solve``, "cr" for
+    ``block_cyclic_reduction_solve``, or a callable of that layout."""
+    if algorithm is None or algorithm == "thomas":
+        return block_thomas_solve
+    if algorithm == "cr":
+        return block_cyclic_reduction_solve
+    return algorithm
+
+
+def banded_newton_step(Gx, Gy, Hx, y, s, rG, rH, rC, reg, structure: TimeStructure, *,
+                       algorithm="thomas"):
+    """Schur-condensed Newton step with band-only assembly, over a batch:
+    Gx (B,n,n), Gy (B,n,m), Hx (B,m,n), y, s, rH, rC (B,m), rG (B,n).
+
+    With per-time inequality rows (``row_permutation``) each row's Gy column
+    and Hx row live in one time block, so the reduction term Gy·diag(1/w)·Hx
+    of the Schur matrix is block-diagonal in time: it is assembled as T
+    batched (b, m_t)·(m_t, b) products instead of one dense (n, m)·(m, n)
+    product, and Gx's three bands are gathered directly. ``algorithm`` is
+    "thomas", "cr" or a callable (see ``_band_solver``). Returns (dx, dy,
+    ds) in the original variable order. No solver tier calls it (they take
+    ``banded_newton_step_compressed``): it is the JAX package's public
+    counterpart, reached through ``linalg.newton_step_tridiag`` with a
+    ``row_permutation``."""
+    B = y.shape[0]
+    T, b, mt = structure.num_blocks, structure.block_size, structure.rows_per_block
+    perm, rperm, inv, _ = _indices(structure, y.device)
+    mv = lambda A, v: (A @ v[..., None])[..., 0]
+
+    d = 1.0 / (y + reg)
+    w = reg + d * s
+    b2 = -rH - d * rC
+
+    cols, rows = perm.reshape(T, b), rperm.reshape(T, mt)
+    diag = Gx[:, cols[:, :, None], cols[:, None, :]]  # (B, T, b, b)
+    lower = Gx[:, cols[1:, :, None], cols[:-1, None, :]]  # row block t+1, column block t
+    upper = Gx[:, cols[:-1, :, None], cols[1:, None, :]]  # row block t, column block t+1
+    Gy_blocks = Gy[:, cols[:, :, None], rows[:, None, :]]  # (B, T, b, mt)
+    Hx_blocks = Hx[:, rows[:, :, None], cols[:, None, :]]  # (B, T, mt, b)
+    inv_w = 1.0 / w[:, rows]  # (B, T, mt)
+    diag = (diag + reg * const(_eye(b), diag.dtype, y.device)
+            - (Gy_blocks * inv_w[:, :, None, :]) @ Hx_blocks)
+    rhs = (-rG - mv(Gy, b2 / w))[:, perm].reshape(B, T, b)
+
+    x = _band_solver(algorithm)(diag.contiguous(), lower.contiguous(), upper.contiguous(),
+                                rhs.contiguous())
+    dx = x.reshape(B, -1)[:, inv]
+    dy = (b2 - mv(Hx, dx)) / w
+    ds = -(rC + s * dy) * d
+    return dx, dy, ds
+
+
 def banded_newton_step_compressed(
     diag, lower, upper, Gy_blocks, Hx_blocks,
     y, s, rG, rH, rC, reg, structure: TimeStructure, *, algorithm="thomas",
@@ -428,9 +482,8 @@ def banded_newton_step_compressed(
     diag (B,T,b,b); lower/upper (T-1,b,b) shared by every lane, or
     (B,T-1,b,b); Gy (B,T,b,mt); Hx (B,T,mt,b); y, s, rH, rC (B, m); rG (B, n).
     ``algorithm`` is a callable (diag, lower, upper, rhs) → x with the
-    batched layout of kernels/thomas.thomas_solve, or "thomas" for the
-    LU-based ``block_thomas_solve``. Returns (dx, dy, ds) in the original
-    variable order.
+    batched layout of kernels/thomas.thomas_solve, or "thomas" or "cr" (see
+    ``_band_solver``). Returns (dx, dy, ds) in the original variable order.
     """
     B = y.shape[0]
     T, b, mt = structure.num_blocks, structure.block_size, structure.rows_per_block
@@ -461,8 +514,8 @@ def banded_newton_step_compressed(
     if lower.dim() == 3:  # one band shared by every lane
         lower = lower.expand(B, *lower.shape)
         upper = upper.expand(B, *upper.shape)
-    solver = block_thomas_solve if algorithm == "thomas" else algorithm
-    dx_blocks = solver(A_diag.contiguous(), lower, upper, rhs.contiguous())  # (B, T, b)
+    dx_blocks = _band_solver(algorithm)(A_diag.contiguous(), lower, upper,
+                                        rhs.contiguous())  # (B, T, b)
 
     dy_blocks = (b2_blocks - (Hx_blocks @ dx_blocks[..., None])[..., 0]) / w_blocks
     ds_blocks = -(rC_blocks + s_blocks * dy_blocks) * d_blocks

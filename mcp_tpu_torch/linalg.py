@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels.block_tridiag import tridiag_solve_permuted
+from .kernels.block_tridiag import banded_newton_step, tridiag_solve_permuted
 from .kernels.linear_solve import gauss_solve, gj_solve, gji_solve
 
 Tensor = torch.Tensor
@@ -268,13 +268,19 @@ def newton_step_gmres(Gx, Gy, Hx, Hy, y, s, rG, rH, rC, reg, *, tol: float = 1e-
 def newton_step_tridiag(Gx, Gy, Hx, Hy, y, s, rG, rH, rC, reg, *, structure,
                         algorithm=None):
     """Schur step solved by the time-major block-tridiagonal solve
-    ``algorithm`` (diag, lower, upper, rhs) → x (default the plain LU
-    block-Thomas): the banded tiers on a game without a row time structure,
-    whose Jacobian is linearized densely. The dense n×n Schur system is
-    permuted to time-major bands (``block_tridiag.tridiag_solve_permuted``).
-    The solver reaches this only without ``row_permutation``; with one the
-    banded tiers linearize band by band (``banded_newton_step_compressed``),
-    and the JAX package's band-only assembly of this step is not ported."""
+    ``algorithm`` (diag, lower, upper, rhs) → x, "thomas" or "cr" (default
+    the plain LU block-Thomas), from dense Jacobians. With a row time
+    structure (``row_permutation``) the Schur system is assembled band by
+    band (``block_tridiag.banded_newton_step``); without one the dense n×n
+    Schur system is permuted to time-major bands
+    (``block_tridiag.tridiag_solve_permuted``). No solver path reaches the
+    banded branch: the solver calls this only without ``row_permutation``,
+    and with one its banded tiers linearize band by band
+    (``banded_newton_step_compressed``). The branch is the counterpart of
+    the JAX package's public function."""
+    if structure.row_permutation is not None:
+        return banded_newton_step(Gx, Gy, Hx, y, s, rG, rH, rC, reg, structure,
+                                  algorithm=algorithm)
     A, b, b2, w, d = _schur_system(Gx, Gy, Hx, y, s, rG, rH, rC, reg)
     dx = tridiag_solve_permuted(A, b, structure, algorithm=algorithm)
     return _schur_recover(dx, Hx, b2, w, d, s, rC)

@@ -1,15 +1,27 @@
-"""Command-line entry points of the player-selection pipeline, each run as
-``python -m mcp_tpu_torch.scripts.<name>`` with the flags of the JAX
-package's scripts of the same name, plus ``--tier`` (the runner's Newton
-tier, default "tridiag"); ``--cpu`` runs on the CPU, otherwise on the card:
+"""Command-line entry points of the player-selection pipeline and the
+analysis suite, each run as ``python -m mcp_tpu_torch.scripts.<name>`` with
+the flags of the JAX package's script of the same name. Those that solve
+also take ``--tier`` (the runner's Newton tier, default "tridiag") and
+``--cpu`` (run on the CPU; otherwise on the card):
 
 * ``datagen``: scenarios and their ground truth in train/, val/ and test/;
-* ``train_selection``: trains the mask predictor, writing checkpoints and
-  ``losses.json``;
-* ``evaluate_selection``: the closed-loop sweep over selection modes and
-  ``metrics.json``.
+* ``train_selection``: trains the mask predictor, writing checkpoints,
+  ``losses.json`` and ``loss_curves.png``;
+* ``evaluate_selection``: the closed-loop sweep over selection modes,
+  ``metrics.json`` and ``radar.png``;
+* ``loss_landscape``: the 2-D mask loss landscape of one training example
+  (one batched solve of grid² lanes) and its heatmap;
+* ``time_test``: solve time against the player count N, as JSON, and its
+  plot.
 
-The JAX scripts' plots (loss curves, radar chart) are not written.
+``paper_vis`` (the anchored radar suite and the trajectory grid) and
+``animate_results`` (one GIF or MP4 per evaluation JSON) only draw, so they
+run on the CPU alone.
+
+The figures need matplotlib. A CLI that solves prints (and, where it
+writes JSON, writes) its numbers first; where matplotlib is not installed,
+as on the card's machine, it then prints one line naming each figure it did
+not write and exits 0 (``figure``).
 """
 
 from __future__ import annotations
@@ -26,3 +38,17 @@ def road_runner(players: int, horizon: int, *, length: float, tier: str, device)
         game, N=players, horizon=horizon, device=device,
         options=SolverOptions(linear_solver=tier, sensitivity_solver="tridiag"),
     )
+
+
+def figure(what: str, draw) -> bool:
+    """Call ``draw()``, which writes the figure(s) named by ``what``; where
+    matplotlib is not installed, print one line saying that ``what`` was
+    not written instead. Returns whether it was written."""
+    try:
+        draw()
+    except ImportError as exc:
+        if "matplotlib" not in str(exc):
+            raise
+        print(f"{what} not written: matplotlib is not installed")
+        return False
+    return True

@@ -1,6 +1,7 @@
 """Closed-loop evaluation sweep over selection modes on the test/
 scenarios that ``datagen`` wrote, then the metrics of every mode, averaged
-over the scenarios, in ``metrics.json``.
+over the scenarios, in ``metrics.json``, and their radar chart in
+``radar.png``.
 
     python -m mcp_tpu_torch.scripts.evaluate_selection --data data --players 4 \
         --horizon 30 --model logs/<run>/best_model.pkl --steps 50 --out eval_out \
@@ -33,7 +34,7 @@ def main(argv=None):
 
     import numpy as np
 
-    from ..analysis import analyze_result
+    from ..analysis import analyze_result, radar_plot
     from ..selection import (
         MODE_PARAMETERS_N4,
         MODE_PARAMETERS_N10,
@@ -42,7 +43,7 @@ def main(argv=None):
         load_all_json_data,
         load_checkpoint,
     )
-    from . import road_runner
+    from . import figure, road_runner
 
     device = "cpu" if args.cpu else "cuda"
     examples = load_all_json_data(os.path.join(args.data, "test"))[: args.scenarios]
@@ -79,6 +80,9 @@ def main(argv=None):
     with open(os.path.join(args.out, "metrics.json"), "w") as f:
         json.dump(metrics_by_mode, f, indent=2)
     print(f"metrics in {os.path.join(args.out, 'metrics.json')}")
+    radar = os.path.join(args.out, "radar.png")
+    if metrics_by_mode and figure(radar, lambda: radar_plot(metrics_by_mode, radar)):
+        print(f"radar chart in {radar}")
 
 
 if __name__ == "__main__":

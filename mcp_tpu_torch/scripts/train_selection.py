@@ -1,7 +1,7 @@
 """Train the player-selection MLP with the solver in the loop on the data
 that ``datagen`` wrote (train/ and, if present, val/); checkpoints
-(``best_model.pkl``, ``trained_model.pkl``), ``losses.json`` and
-``metrics.jsonl`` go to the log directory.
+(``best_model.pkl``, ``trained_model.pkl``), ``losses.json``,
+``metrics.jsonl`` and ``loss_curves.png`` go to the log directory.
 
     python -m mcp_tpu_torch.scripts.train_selection --data data --players 4 \
         --horizon 30 --epochs 20 --batch-size 8 --lr 0.005 [--tier tridiag_pallas] [--cpu]
@@ -30,8 +30,9 @@ def main(argv=None):
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args(argv)
 
+    from ..analysis import loss_curves_plot
     from ..selection import TrainConfig, load_all_json_data, train
-    from . import road_runner
+    from . import figure, road_runner
 
     train_data = load_all_json_data(os.path.join(args.data, "train"))
     val_dir = os.path.join(args.data, "val")
@@ -52,8 +53,11 @@ def main(argv=None):
         seed=args.seed,
     )
     log_dir = args.log_dir or os.path.join("logs", config.record_name)
-    train(runner, train_data, val_data, config=config, log_dir=log_dir)
+    _, history = train(runner, train_data, val_data, config=config, log_dir=log_dir)
     print(f"done; checkpoints and losses.json in {log_dir}")
+    curves = os.path.join(log_dir, "loss_curves.png")
+    if figure(curves, lambda: loss_curves_plot(history, curves)):
+        print(f"loss curves in {curves}")
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@ pin + dynamics defects; shared inequalities = coupling + polygon environment
 residuals compare entry by entry.
 
 The build runs its numeric probes (bandwidth check, row assignment, affine
-bands) on the CPU in float64, once; only the attached affine bands move to
-the game's device.
+bands) on the CPU in float64, once, inside ``utils.devices.probes_on_cpu``;
+only the attached affine bands move to the game's device.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from torch.func import vmap
 
 from .._device import resolve_device
+from ..utils.devices import probes_on_cpu
 from ..games import OptimizationProblem, ParametricGame
 from .costs import TrajectoryGame
 from .environment import box_constraint_fn
@@ -267,16 +268,18 @@ def build_parametric_game(
     structure = build_time_structure(game, horizon)
     if len(structure.permutation) != pg.mcp.unconstrained_dimension:
         return pg
-    if validate_time_structure(pg, structure) >= 1e-8:
-        return pg
-    rows = build_row_time_structure(pg, structure)
-    if rows is not None:
-        structure = structure._replace(row_permutation=rows[0], rows_per_block=rows[1])
-    mcp = dataclasses.replace(pg.mcp, time_structure=structure)
-    if affine_bands and structure.row_permutation is not None:
-        from ..kernels.block_tridiag import build_affine_bands
+    with probes_on_cpu():
+        if validate_time_structure(pg, structure) >= 1e-8:
+            return pg
+        rows = build_row_time_structure(pg, structure)
+        if rows is not None:
+            structure = structure._replace(row_permutation=rows[0], rows_per_block=rows[1])
+        mcp = dataclasses.replace(pg.mcp, time_structure=structure)
+        ab = None
+        if affine_bands and structure.row_permutation is not None:
+            from ..kernels.block_tridiag import build_affine_bands
 
-        ab = build_affine_bands(mcp, structure, sum(pg.dims.theta))
-        if ab is not None:
-            mcp = dataclasses.replace(mcp, affine_bands=ab.to(device=device))
+            ab = build_affine_bands(mcp, structure, sum(pg.dims.theta))
+    if ab is not None:
+        mcp = dataclasses.replace(mcp, affine_bands=ab.to(device=device))
     return dataclasses.replace(pg, mcp=mcp)

@@ -308,3 +308,76 @@ def test_selection_entry_points_default_to_cuda_and_raise_without_gpu(tmp_path):
         real_data.make_real_runner(N=2, horizon=3)
     with pytest.raises(RuntimeError, match="cuda"):
         road_runner(2, 3, length=10.0, tier="tridiag", device="cuda")
+
+
+def test_analysis_and_dryrun_modules_are_scanned():
+    """The modules of the analysis suite, the dry run, the device helpers
+    and the analysis CLIs are among the files the import scan covers."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("analysis/__init__.py", "analysis/experiments.py", "analysis/plots.py",
+                "analysis/animate.py", "dryrun.py", "utils/devices.py",
+                "scripts/loss_landscape.py", "scripts/time_test.py", "scripts/paper_vis.py",
+                "scripts/animate_results.py"):
+        assert f"mcp_tpu_torch/{rel}" in names
+
+
+def _without_matplotlib(monkeypatch):
+    """Block matplotlib and drop the port's modules that import it lazily,
+    so that they import afresh (monkeypatch restores both)."""
+    import sys
+
+    import mcp_tpu_torch
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    for attr in ("analysis", "dryrun", "scripts"):
+        if hasattr(mcp_tpu_torch, attr):
+            monkeypatch.setattr(mcp_tpu_torch, attr, getattr(mcp_tpu_torch, attr))
+    for name in list(sys.modules):
+        if name.startswith(("mcp_tpu_torch.analysis", "mcp_tpu_torch.dryrun",
+                            "mcp_tpu_torch.scripts")):
+            monkeypatch.delitem(sys.modules, name)
+
+
+def test_analysis_and_dryrun_import_without_matplotlib(monkeypatch, tmp_path):
+    """The card's machine has no matplotlib: ``mcp_tpu_torch.analysis`` and
+    ``mcp_tpu_torch.dryrun`` import without it, the figure-free analysis
+    works, and every call that draws raises ImportError naming matplotlib."""
+    import importlib
+
+    _without_matplotlib(monkeypatch)
+    A = importlib.import_module("mcp_tpu_torch.analysis")
+    importlib.import_module("mcp_tpu_torch.dryrun")
+    assert set(A.RADAR_PRESETS) == {"n10", "n4", "ped"}
+    assert A.collect_mode_metrics(str(tmp_path), num_players=2,
+                                  modes_with_params={"All": (1,)}) == {}
+    draws = [
+        lambda p: A.radar_plot({"a": {"x": 1.0}}, p),
+        lambda p: A.radar_plot_anchored({"a": {"Rate": 1.0}}, p, metric_names=("Rate",)),
+        lambda p: A.time_scaling_plot([2], [1.0], p),
+        lambda p: A.loss_curves_plot({"train_loss": [1.0]}, p),
+        lambda p: A.loss_landscape_plot([[0.0]], [[0.0]], [[0.0]], p),
+        lambda p: A.paper_trajectory_grid([], [], p),
+        lambda p: A.animate_result({"Player 1 Trajectory": [[0.0] * 4]}, p, num_players=1),
+    ]
+    for draw in draws:
+        with pytest.raises(ImportError, match="matplotlib"):
+            draw(str(tmp_path / "fig.png"))
+    assert not list(tmp_path.iterdir())
+
+
+def test_cli_without_matplotlib_prints_its_numbers_then_one_line(monkeypatch, tmp_path,
+                                                                  capsys):
+    """A CLI that solves prints its numbers (and writes its JSON), then one
+    line naming the figure it did not write, and returns normally."""
+    import importlib
+    import json
+
+    _without_matplotlib(monkeypatch)
+    time_test = importlib.import_module("mcp_tpu_torch.scripts.time_test")
+    out = tmp_path / "time.png"
+    time_test.main(["--players", "2", "--horizon", "3", "--repeats", "1", "--out", str(out),
+                    "--json-out", str(tmp_path / "time.json"), "--cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert json.loads(lines[-2]) == json.loads((tmp_path / "time.json").read_text())
+    assert lines[-1] == f"{out} not written: matplotlib is not installed"
+    assert not out.exists()

@@ -213,7 +213,8 @@ def test_the_three_clis_run_on_the_cpu(tmp_path):
                           "--input-horizon", "2", "--epochs", "1", "--batch-size", "2",
                           "--log-dir", str(run), "--tier", "tridiag_pallas", "--cpu"])
     assert json.loads((run / "losses.json").read_text())["train_loss"]
-    assert (run / "best_model.pkl").exists() and not list(run.glob("*.png"))
+    assert (run / "best_model.pkl").exists()
+    assert [p.name for p in run.glob("*.png")] == ["loss_curves.png"]
     proc = subprocess.run(
         [sys.executable, "-m", "mcp_tpu_torch.scripts.evaluate_selection", "--data", str(data),
          "--players", "2", "--horizon", "4", "--input-horizon", "2", "--steps", "2",
@@ -227,3 +228,4 @@ def test_the_three_clis_run_on_the_cpu(tmp_path):
                             "Neural Network Partial Rank [3]"}
     assert metrics["All [1]"]["Mask Sum"] == 2.0
     assert (ev / "receding_horizon_trajectories_[1]_[All]_[1].json").exists()
+    assert os.path.getsize(ev / "radar.png") > 1000

@@ -11,8 +11,11 @@ a QP of the suite's MCP (n=30, m=20: the 50-wide condensed system padded to
 64 in panels of 8) with its θ-gradient (the condensed IFT's core solves on
 the ranks too) and with the polish riding the override; ``solve_routed`` of
 two shapes (one rank each), of one bucket padded over both ranks, and of two
-weighted buckets. The fixture computes the JAX package's references
-(cached) while the ranks run. The partition arithmetic and the refusals run
+weighted buckets; and the dry run's tasks (``dryrun.dryrun_tasks(2)``: the
+data-parallel training step, sp, tp and ep, each held against one rank by
+``dryrun.check_axis``), with the training step also in float64 against the
+JAX package's step of ``__graft_entry__.py``. The fixture computes the JAX
+package's references (cached) while the ranks run. The partition arithmetic and the refusals run
 in this process."""
 
 import dataclasses
@@ -32,10 +35,11 @@ from mcp_tpu.parallel.tensor import make_tp_mesh as jax_tp_mesh
 from mcp_tpu.parallel.tensor import solve_single_tp as jax_solve_single_tp
 from mcp_tpu.solver import SolverOptions as JaxOptions
 from mcp_tpu.solver import ip_solve as jax_ip_solve
-from mcp_tpu_torch import SOLVED, SolverOptions, ip_solve, solve_batch
+from mcp_tpu_torch import SOLVED, SolverOptions, dryrun, ip_solve, solve_batch
 from mcp_tpu_torch.bench import horizon as worker
 from mcp_tpu_torch.bench import qp
 from mcp_tpu_torch.parallel.routing import partition_devices
+from mcp_tpu_torch.selection import dp
 from mcp_tpu_torch.parallel.tensor import padded_dimension, solve_single_tp
 
 torch.set_num_threads(1)
@@ -98,9 +102,12 @@ def ranks(tmp_path_factory):
         dict(kind="routed", name="padded", buckets=shapes[:1]),
         dict(kind="routed", name="weights",
              buckets=[_bucket(SHAPES[0][0], _thetas(SHAPES[0][0], 2, seed=9), {}, weight=1.0)] * 2),
+        *dryrun.dryrun_tasks(2, device="cpu"),
+        dict(kind="dp_train", name="dp64", dtype="float64", **dp.dp_inputs(2)),
     ]
     ranks = worker.start(2, tasks, tmp_path_factory.mktemp("tp_ranks"), device="cpu",
                          timeout_s=300)
+    _jax_dp_step()
     for n, panel in LU_CASES:
         _jax_lu(n, panel)
     _jax_lu(0, 8)
@@ -301,3 +308,81 @@ def test_solve_routed_weights(ranks):
     ref = solve_batch(tm, torch.from_numpy(_thetas(problem, 2, seed=9)))
     np.testing.assert_array_equal(got[0]["status"], ref.status.numpy())
     np.testing.assert_array_equal(got[0]["x"], ref.x.numpy())
+
+
+# -- the dry run ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("axis", ["dp", "sp", "tp", "ep"])
+def test_dryrun_axis_matches_one_rank(ranks, axis):
+    """``dryrun_multichip(2, device="cpu")``'s checks of each axis on the
+    ranks' results (the dp step against one rank within 1e-4, as the JAX
+    package's contract requires)."""
+    name = f"dryrun_{axis}"
+    (task,) = [t for t in dryrun.dryrun_tasks(2, device="cpu") if t["name"] == name]
+    got = ranks[0][name]
+    if axis == "dp":
+        assert got["loss"] == ranks[1][name]["loss"]
+        for a, b in zip(got["params"], ranks[1][name]["params"]):
+            np.testing.assert_array_equal(a, b)
+    else:
+        _same_on_both_ranks(ranks, name)
+    assert "— OK" in dryrun.check_axis(axis, got, task, 2, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dp_step():
+    """The JAX package's dry-run training step (``__graft_entry__.py:123-181``)
+    on one device, in float64, on ``dp.dp_inputs(2)``: (loss, new
+    weights and biases as numpy)."""
+    from mcp_tpu.selection.games import (build_masked_parametric_game,
+                                         setup_road_environment, setup_trajectory_game)
+    from mcp_tpu.selection.model import MLPParams, apply_mlp
+    from mcp_tpu.trajectories import cold_start_primal
+
+    N, H = dp.DP_N, dp.DP_HORIZON
+    inp = dp.dp_inputs(2)
+    game = setup_trajectory_game(environment=setup_road_environment(length=10.0), N=N)
+    pg = build_masked_parametric_game(game, N=N, horizon=H)
+    options = JaxOptions(**dp.DP_OPTIONS)
+    params = MLPParams(weights=tuple(map(jnp.asarray, inp["weights"])),
+                       biases=tuple(map(jnp.asarray, inp["biases"])))
+    histories, init, goals = (jnp.asarray(inp[k]) for k in
+                              ("histories", "initial_states", "goals"))
+
+    def pack_theta(x0s, gls, mask):
+        ones = jnp.ones((N,), mask.dtype)
+        return jnp.concatenate([jnp.concatenate(
+            [x0s[i], gls[i], jnp.concatenate([jnp.ones((1,), mask.dtype), mask]) if i == 0
+             else ones]) for i in range(N)])
+
+    def loss_fn(params):
+        masks = jax.vmap(lambda h: apply_mlp(params, h))(histories)
+        thetas = jax.vmap(pack_theta)(init, goals, masks)
+        x0 = jax.vmap(lambda x0s: cold_start_primal(game, pg, H, x0s.reshape(-1)))(init)
+        sol = jax_solve_batch(pg.mcp, thetas, x0=x0, options=options)
+        similarity = jnp.mean(sol.x[:, : N * H * 4] ** 2)
+        return 11.0 * similarity + 1.5 * jnp.mean(masks) + jnp.mean(0.5 - jnp.abs(0.5 - masks))
+
+    loss, grads = jax.value_and_grad(loss_fn)(params)
+    new = [np.asarray(p - dp.DP_LR * g) for p, g in zip(
+        jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(grads))]
+    return float(loss), new
+
+
+def test_dp_step_matches_jax_in_float64(ranks):
+    """The port's float64 training step, on one rank and data-parallel over
+    two, against the JAX package's on one device."""
+    got = ranks[0]["dp64"]
+    want_loss, want = _jax_dp_step()
+    # The port's parameters in MaskMLP order (weight, bias per layer); the
+    # JAX leaves in MLPParams order (every weight, then every bias).
+    layers = len(want) // 2
+    order = [want[i // 2] if i % 2 == 0 else want[layers + i // 2] for i in range(len(want))]
+    for loss, params in ((got["ref_loss"], got["ref_params"]), (got["loss"], got["params"])):
+        # Float64, the same algebra (both solves stop FAILED at the 3 x 3
+        # iteration caps, as in the JAX package's dry run): measured |Δ| 0
+        # in the loss and 1.4e-17 in the new weights; held to 1e-12.
+        assert abs(loss - want_loss) <= 1e-12
+        for g, w in zip(params, order):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-12)
