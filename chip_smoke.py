@@ -22,7 +22,10 @@ before it and read just after:
   * the solver-in-the-loop training step on tier "tridiag_pallas" (N=4,
     horizon 30, batch 8, float32: MLP → masked-game solve → loss → IFT
     gradient → SGD; the two-way sweep K7a in the forward and the backward,
-    K2), one warm and three timed steps;
+    K2), staged afresh (``stage_train_step``), one warm and three timed
+    steps; then, beside the gradient checks, ``python -m
+    mcp_tpu_torch.scripts.bench_train_step`` as a child process from the
+    staged step, its first step held against the warm one;
   * the fact tiers, every other banded tier of the JAX package (its
     Gauss–Jordan in-block factorizations in the one-way sweep K1′, the
     two-way sweep K7a and cyclic reduction K3): the lane-change headline
@@ -290,6 +293,13 @@ K2_SHAPES = ((256, 200, 250), (8, 1200, 1470), (8, 3000, 3630))
 K2_KINDS = ("feasible", "partly_feasible", "infeasible", "nan_direction", "edges")
 K7A_GROUP_KERNEL = r"\bbabe_group_kernel<"
 FD_TOL, F32_GRAD_TOL = 3e-8, 1e-4
+# The staged training step, run beside the gradient checks (phase 22) by
+# the benchmark CLI in a child process from what phase 21 staged: its first
+# step is the warm step's (the same staged inputs and weights), held to it
+# bit for bit or within F32_GRAD_TOL of max|g|. One timed step, which starts
+# from the initial MLP as the first step does: the checks need no more.
+STAGED_ARGS = ("--tier", "tridiag_pallas", "--repeats", "1")
+STAGED_TIMEOUT_S = 300
 GRAD_CPU_THREADS = 4  # the CPU float64 step's threads, beside the card's checks
 
 
@@ -2107,30 +2117,33 @@ def phase_k7a(n4, device):
 
 
 def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
-    """The training step through the user entry points: ``train_step_setup``
-    on tier "tridiag_pallas" (its ground-truth solve certified), one warm
-    step, then ``steps`` timed steps, each (the warm one too) a train_step
-    and its sgd_update, with every launch count set to 0 just before the
-    timed steps and read just after; K7a's
-    launches inside the IFT are the backward's, the rest the forward's.
-    Returns (setup, the IFT's operands from the warm step, launches, stats)."""
+    """The training step through the user entry points: ``stage_train_step``
+    on tier "tridiag_pallas" (``train_step_setup``, its ground-truth solve
+    certified, staged for ``staged_child``), one warm step, then ``steps``
+    timed steps, each (the warm one too) a train_step and its sgd_update,
+    with every launch count set to 0 just before the timed steps and read
+    just after; K7a's launches inside the IFT are the backward's, the rest
+    the forward's. Returns (setup, with the warm step's loss, status and
+    gradient on the CPU as ``warm_step`` and the setup's seconds as
+    ``setup_s``; the IFT's operands from the warm step, launches, stats)."""
     import torch
 
     from mcp_tpu_torch import SOLVED
-    from mcp_tpu_torch.bench.flagships import train_step_setup
+    from mcp_tpu_torch.bench.flagships import stage_train_step
     from mcp_tpu_torch.bench.harness import true_kkt_errors
 
     t0 = time.perf_counter()
-    s = train_step_setup(batch, 4, FLAG_T, tier="tridiag_pallas", device=device)
-    setup_s = time.perf_counter() - t0
+    s = stage_train_step(batch, 4, FLAG_T, tier="tridiag_pallas", device=device)
+    s.setup_s = time.perf_counter() - t0
     N, gt = s.config.num_players, s.gt.result
     ones = torch.ones((batch, N, N), dtype=s.init.dtype, device=s.init.device)
     tk = true_kkt_errors(s.runner.parametric_game.mcp, gt,
                          s.runner.pack_thetas(s.init, s.goals, ones))
     solved = gt.status == SOLVED
     tol = s.runner.options.tol
-    log(f"  setup {setup_s:.1f} s (game build, MLP, ground-truth solve): tightening rate "
-        f"{s.rate}, ground-truth success {s.gt_success} (iterations "
+    log(f"  setup and staging {s.setup_s:.1f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in s.seconds.items())
+        + f"; MLP): tightening rate {s.rate}, ground-truth success {s.gt_success} (iterations "
         f"{gt.outer_iters.tolist()}), max true KKT of a SOLVED lane "
         f"{float(tk[solved].max()) if bool(solved.any()) else float('nan'):.3e}")
     check(s.gt_success >= TRAIN_MIN_SUCCESS,
@@ -2138,9 +2151,10 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
     check(not bool((solved & (tk > tol)).any()),
           "training: a SOLVED ground-truth lane has true KKT above tol")
     with ift_watch() as warm:
-        _, _, grads = s.train_step(s.model, s.trajectories, s.init, s.goals)
+        loss, (_, status), grads = s.train_step(s.model, s.trajectories, s.init, s.goals)
         s.sgd_update(s.model, grads, s.config.learning_rate)
     torch.cuda.synchronize()
+    s.warm_step = {"loss": loss.cpu(), "status": status.cpu(), "grads": [g.cpu() for g in grads]}
 
     reset_counts()
     rows = []
@@ -2199,6 +2213,68 @@ def phase_train_path(device, batch=TRAIN_B, steps=TRAIN_STEPS):
           and launches["babe_other_facts"] == 0,
           f"training: K1, K3 or another K7a fact launched on the K7a qr route {launches}")
     return s, warm["args"], launches, stats
+
+
+def start_staged_child():
+    """``python -m mcp_tpu_torch.scripts.bench_train_step`` in a child
+    process on the step ``phase_train_path`` staged (``STAGED_ARGS``),
+    saving its first step. Returns (process, work directory, start time)."""
+    work = Path(rank_dir("staged"))
+    with open(work / "stdout.txt", "w") as out, open(work / "stderr.txt", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mcp_tpu_torch.scripts.bench_train_step", *STAGED_ARGS,
+             "--first-step-out", str(work / "first_step.pt")],
+            cwd=Path(__file__).resolve().parent, stdout=out, stderr=err)
+    return proc, work, time.perf_counter()
+
+
+def finish_staged_child(child, train):
+    """Wait for ``start_staged_child``'s process and check it: exit 0,
+    ``staged`` true, K7a launched in the forward and the backward and K2
+    launched (the line before its last), its first step's status equal to
+    the warm step's of ``phase_train_path`` and its loss and gradient
+    bit-equal to it or within F32_GRAD_TOL of max|g|. Returns its launch
+    counts and its last line."""
+    import torch
+
+    proc, work, t0 = child
+    try:
+        proc.wait(timeout=STAGED_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, "staged child: bench_train_step failed: "
+          + (work / "stderr.txt").read_text()[-2000:])
+    lines = (work / "stdout.txt").read_text().splitlines()
+    out, launches = json.loads(lines[-1]), json.loads(lines[-2])["launches"]
+    first, warm = torch.load(work / "first_step.pt"), train.warm_step
+    bit_equal = (torch.equal(first["loss"], warm["loss"])
+                 and all(torch.equal(a, b) for a, b in zip(first["grads"], warm["grads"])))
+    scale = max(float(g.abs().max()) for g in warm["grads"])
+    gap = max(float((a - b).abs().max()) for a, b in zip(first["grads"], warm["grads"])) / scale
+    loss_gap = abs(float(first["loss"]) - float(warm["loss"])) / abs(float(warm["loss"]))
+    log(f"  staged child (bench_train_step {' '.join(STAGED_ARGS)}, {wall:.1f} s wall, beside "
+        f"phase 22): staged {out['staged']}, setup {out['setup_s']} s "
+        f"{out['setup_split_s']} against phase 21's cold {train.setup_s:.3f} s "
+        f"{ {k: round(v, 3) for k, v in train.seconds.items()} }; setup + first step "
+        f"{out['compile_s']} s, median step {out['value']} s (contended); launches "
+        f"{json.dumps(launches)}; first step against phase 21's warm step: "
+        + ("bit-equal" if bit_equal else
+           f"max|Δg|/max|g| = {gap:.3e}, |Δloss|/|loss| = {loss_gap:.3e} "
+           f"(tol {F32_GRAD_TOL:g})"))
+    check(out["staged"] is True, "staged child: bench_train_step did not load the staged step")
+    check(launches["babe_forward"] > 0 and launches["babe_backward"] > 0,
+          f"staged child: K7a not launched in both passes {launches}")
+    check(launches["linesearch"] > 0, f"staged child: K2 never launched {launches}")
+    check(torch.equal(first["status"], warm["status"]),
+          f"staged child: status {first['status'].tolist()} against the warm step's "
+          f"{warm['status'].tolist()}")
+    check(bit_equal or (gap <= F32_GRAD_TOL and loss_gap <= F32_GRAD_TOL),
+          f"staged child: first step off the warm step by {gap:.3e} (gradient), "
+          f"{loss_gap:.3e} (loss)")
+    return launches, out
 
 
 def grad_cpu_step(path):
@@ -4619,8 +4695,16 @@ def main() -> int:
     train, ift_bands, train_launches, _ = phase_train_path(device)
     route_check("babe", "qr", "IFT transposed bands at a training-step solution (8x30x40)",
                 ift_bands)
-    phase(f"22: gradient checks ({GRAD_B} lanes)")
-    ift64_bands, _ = phase_train_gradients(device)
+    phase(f"22: gradient checks ({GRAD_B} lanes), and beside them the staged step's "
+          "benchmark CLI in a child process")
+    staged_child = start_staged_child()
+    try:
+        ift64_bands, _ = phase_train_gradients(device)
+    except BaseException:
+        staged_child[0].kill()
+        staged_child[0].wait()
+        raise
+    staged_launches, _ = finish_staged_child(staged_child, train)
     route_check("babe", "qr", "IFT transposed bands at a float64 training-step solution "
                 "(2x30x40)", ift64_bands)
     phase("23: K7a timing (the plan's route against the block route)")
@@ -4692,6 +4776,13 @@ def main() -> int:
             entry["selection_launches"] = {st: c[key] for st, c in selection["launches"].items()
                                            if key in c}
             entry["analysis_launches"] = {st: c[key] for st, c in analysis["launches"].items()}
+    for entry in kernels:
+        # What the staged step's benchmark CLI (phase 22's child) launched.
+        if entry["name"] == "babe_thomas_solve":
+            entry["staged_child_launches"] = {k: staged_launches[k]
+                                              for k in ("babe_forward", "babe_backward")}
+        elif entry["name"] == "linesearch_update":
+            entry["staged_child_launches"] = staged_launches["linesearch"]
     for entry in kernels:
         # What the solver-option runs (phase 30c) and the tp and routed
         # ranks (phase 31) launched of K1, K2 and K4a.

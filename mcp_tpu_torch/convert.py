@@ -9,10 +9,15 @@ port's objects, so both packages can run on the same bands.
 The random-QP MCP (``bench/qp.py``) closes over nothing but θ, so nothing of
 it carries across: the same θ, as a numpy array, goes into both packages.
 The mask-predictor MLP does have weights: ``mlp_params_from_numpy`` carries
-them into the port's ``MaskMLP``.
+them into the port's ``MaskMLP``. The staged training step's inputs
+(``train_inputs_to_numpy`` / ``train_inputs_from_numpy``) use the keys and
+layout of the JAX package's staged ``.npz``, so either package reads the
+other's.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -68,3 +73,45 @@ def mlp_params_from_numpy(weights, biases, device="cuda", dtype=torch.float32):
             layer.weight.copy_(torch.tensor(w))
             layer.bias.copy_(torch.tensor(np.asarray(b)))
     return model
+
+
+def mlp_leaves(model) -> list:
+    """A ``MaskMLP``'s parameters as numpy arrays in the order of
+    ``jax.tree_util.tree_flatten`` of the JAX package's ``MLPParams``: every
+    weight (out, in), then every bias."""
+    return ([layer.weight.detach().cpu().numpy() for layer in model.layers]
+            + [layer.bias.detach().cpu().numpy() for layer in model.layers])
+
+
+def train_inputs_to_numpy(model, trajectories, init, goals, rate: float,
+                          gt_success: float) -> dict:
+    """The staged training step's inputs under the JAX package's ``.npz``
+    keys: ``trajectories``, ``init``, ``goals``, ``rate`` and ``gt_success``
+    (float32 scalars, as there) and ``param_{i}`` (``mlp_leaves``)."""
+    return dict(
+        trajectories=trajectories.detach().cpu().numpy(),
+        init=init.detach().cpu().numpy(),
+        goals=goals.detach().cpu().numpy(),
+        rate=np.float32(rate),
+        gt_success=np.float32(gt_success),
+        **{f"param_{i}": a for i, a in enumerate(mlp_leaves(model))},
+    )
+
+
+def train_inputs_from_numpy(data, device="cuda", dtype=torch.float32) -> SimpleNamespace:
+    """The inverse of ``train_inputs_to_numpy`` (a dict or an ``np.load``
+    of either package's staged ``.npz``): model, trajectories, init, goals
+    on ``device`` in ``dtype``, and rate, gt_success as floats."""
+    device = resolve_device(device)
+    leaves = [np.asarray(data[f"param_{i}"])
+              for i in range(sum(k.startswith("param_") for k in data))]
+    half = len(leaves) // 2
+    tensor = lambda k: torch.as_tensor(np.asarray(data[k])).to(device=device, dtype=dtype)
+    return SimpleNamespace(
+        model=mlp_params_from_numpy(leaves[:half], leaves[half:], device=device, dtype=dtype),
+        trajectories=tensor("trajectories"),
+        init=tensor("init"),
+        goals=tensor("goals"),
+        rate=float(data["rate"]),
+        gt_success=float(data["gt_success"]),
+    )

@@ -131,15 +131,17 @@ def setup_real_game(
 
 def build_masked_parametric_game(
     game: TrajectoryGame, *, N: int, horizon: int = 30,
-    compute_sensitivities: bool = True, device="cuda",
+    compute_sensitivities: bool = True, probes=None, device="cuda",
 ):
     """Compile a masked game with params_per_player = N + 2 (goal and the
-    full mask vector); its build-time constants live on ``device``."""
+    full mask vector); its build-time constants live on ``device``.
+    ``probes`` (``trajectories.GameProbes``) skips the build's probes."""
     return build_parametric_game(
         game=game,
         horizon=horizon,
         params_per_player=N + 2,
         compute_sensitivities=compute_sensitivities,
+        probes=probes,
         device=device,
     )
 

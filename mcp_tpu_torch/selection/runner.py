@@ -48,13 +48,16 @@ class MaskedGameRunner:
     @staticmethod
     def create(
         game: TrajectoryGame, *, N: int, horizon: int,
-        options: Optional[SolverOptions] = None, device="cuda",
+        options: Optional[SolverOptions] = None, probes=None, device="cuda",
     ) -> "MaskedGameRunner":
         """Build the game's MCP on ``device`` (default ``"cuda"``, which
-        raises without a GPU). Default options: the banded tier "tridiag"
-        when the builder validated the time structure, else "schur"."""
+        raises without a GPU); ``probes`` (``trajectories.GameProbes`` of an
+        earlier build) skips the build's probes. Default options: the banded
+        tier "tridiag" when the builder validated the time structure, else
+        "schur"."""
         device = resolve_device(device)
-        pg = build_masked_parametric_game(game, N=N, horizon=horizon, device=device)
+        pg = build_masked_parametric_game(game, N=N, horizon=horizon, probes=probes,
+                                          device=device)
         if options is None:
             if pg.mcp.time_structure is not None:
                 options = SolverOptions(linear_solver="tridiag", sensitivity_solver="tridiag")

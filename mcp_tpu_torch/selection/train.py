@@ -13,7 +13,11 @@ package's draw in distribution only.
 
 Checkpoints are pickles in the JAX package's layout (``weights`` (out, in)
 and ``biases`` as numpy arrays, ``config`` as a dict, ``extra``), so a
-checkpoint written by either package loads in the other.
+checkpoint written by either package loads in the other. The JAX package's
+"orbax" backend writes an Orbax directory beside the pickle; its
+counterpart here, backend "dcp", writes a ``torch.distributed.checkpoint``
+directory at ``path + ".dcp"`` with the tensors ``weights.{i}`` and
+``biases.{i}``, which ``load_dcp_weights`` restores.
 """
 
 from __future__ import annotations
@@ -137,13 +141,26 @@ class MetricsLogger:
             self._tb.close()
 
 
+def _dcp_state(model: MaskMLP) -> dict:
+    state = {}
+    for i, layer in enumerate(model.layers):
+        state[f"weights.{i}"] = layer.weight.detach().cpu()
+        state[f"biases.{i}"] = layer.bias.detach().cpu()
+    return state
+
+
 def save_checkpoint(path: str, model: MaskMLP, config: TrainConfig, extra=None,
                     backend: str = "pickle"):
     """Pickle the model's weights (out, in) and biases as numpy arrays with
-    the config and ``extra``. The JAX package's "orbax" backend is a JAX
-    library and raises NotImplementedError here."""
-    if backend != "pickle":
-        raise NotImplementedError(f"checkpoint backend {backend!r}: only 'pickle'")
+    the config and ``extra``; backend "dcp" also writes them as a
+    ``torch.distributed.checkpoint`` directory at ``path + ".dcp"``
+    (``weights.{i}``, ``biases.{i}``), the counterpart of the JAX package's
+    "orbax" backend, which is a JAX library and raises NotImplementedError
+    here."""
+    if backend not in ("pickle", "dcp"):
+        raise NotImplementedError(
+            f"checkpoint backend {backend!r}: 'pickle' or 'dcp' (orbax is a JAX library; "
+            "backend 'dcp' writes its counterpart, a torch.distributed.checkpoint directory)")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         pickle.dump(
@@ -155,6 +172,24 @@ def save_checkpoint(path: str, model: MaskMLP, config: TrainConfig, extra=None,
             },
             f,
         )
+    if backend == "dcp":
+        import torch.distributed.checkpoint as dcp
+
+        dcp.save(_dcp_state(model), checkpoint_id=os.path.abspath(path) + ".dcp")
+
+
+def load_dcp_weights(directory: str) -> tuple[list, list]:
+    """(weights, biases) as CPU tensors from a ``save_checkpoint(...,
+    backend="dcp")`` directory, each restored into a tensor of the shape and
+    dtype its metadata records."""
+    import torch.distributed.checkpoint as dcp
+
+    meta = dcp.FileSystemReader(directory).read_metadata().state_dict_metadata
+    state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype) for k, m in meta.items()}
+    dcp.load(state, checkpoint_id=directory)
+    layers = len(state) // 2
+    return ([state[f"weights.{i}"] for i in range(layers)],
+            [state[f"biases.{i}"] for i in range(layers)])
 
 
 def load_checkpoint(path: str, device="cuda", dtype=torch.float32) -> tuple[MaskMLP, dict]:

@@ -12,7 +12,7 @@ from .packing import (
     unpack_parameters,
     unpack_trajectory,
 )
-from .game_builder import build_parametric_game
+from .game_builder import GameProbes, build_parametric_game, probe_game
 from .strategies import (
     JointStrategy,
     OpenLoopStrategy,
@@ -41,6 +41,8 @@ __all__ = [
     "unpack_parameters",
     "unpack_trajectory",
     "build_parametric_game",
+    "GameProbes",
+    "probe_game",
     "JointStrategy",
     "OpenLoopStrategy",
     "Rollout",

@@ -6,13 +6,16 @@ pin + dynamics defects; shared inequalities = coupling + polygon environment
 residuals compare entry by entry.
 
 The build runs its numeric probes (bandwidth check, row assignment, affine
-bands) on the CPU in float64, once, inside ``utils.devices.probes_on_cpu``;
-only the attached affine bands move to the game's device.
+bands) on the CPU in float64, once, inside ``utils.devices.probes_on_cpu``
+(``probe_game``); only the attached affine bands move to the game's device.
+A build handed the ``GameProbes`` of an earlier build of the same game (the
+staged training step keeps them) skips the probes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -226,6 +229,40 @@ def validate_time_structure(pg: ParametricGame, structure) -> float:
     return float(np.max(np.abs(A4[mask])) if mask.any() else 0.0)
 
 
+class GameProbes(NamedTuple):
+    """What the build's one-time numeric probes found (``probe_game``): the
+    validated ``TimeStructure`` (with its row permutation when every
+    inequality row sits in one time block), None when the bandwidth check
+    fails; and the ``AffineBands`` (CPU, float64), None when the banded
+    Jacobian is not affine in the iterate or was not asked for."""
+
+    structure: Optional[object]
+    affine_bands: Optional[object]
+
+
+def probe_game(pg: ParametricGame, game: TrajectoryGame, horizon: int, *,
+               affine_bands: bool = True) -> GameProbes:
+    """Run the build's numeric probes on the CPU in float64: the bandwidth
+    check of the time-major reordering, the row assignment and, with
+    ``affine_bands``, the affine-bands probe."""
+    structure = build_time_structure(game, horizon)
+    if len(structure.permutation) != pg.mcp.unconstrained_dimension:
+        return GameProbes(None, None)
+    with probes_on_cpu():
+        if validate_time_structure(pg, structure) >= 1e-8:
+            return GameProbes(None, None)
+        rows = build_row_time_structure(pg, structure)
+        if rows is not None:
+            structure = structure._replace(row_permutation=rows[0], rows_per_block=rows[1])
+        ab = None
+        if affine_bands and structure.row_permutation is not None:
+            from ..kernels.block_tridiag import build_affine_bands
+
+            mcp = dataclasses.replace(pg.mcp, time_structure=structure)
+            ab = build_affine_bands(mcp, structure, sum(pg.dims.theta))
+    return GameProbes(structure, ab)
+
+
 def build_parametric_game(
     *,
     game: TrajectoryGame,
@@ -234,6 +271,7 @@ def build_parametric_game(
     compute_sensitivities: bool = True,
     time_structure: bool = True,
     affine_bands: bool = True,
+    probes: Optional[GameProbes] = None,
     device="cuda",
 ) -> ParametricGame:
     """Compile a TrajectoryGame into a ParametricGame/MCP.
@@ -244,6 +282,8 @@ def build_parametric_game(
     ``affine_bands`` (default), when the banded Jacobian probes as affine in
     the iterate and θ-independent (quadratic games such as lane change), its
     exact decomposition is attached too, as float64 tensors on ``device``.
+    ``probes``, the ``GameProbes`` of an earlier build of the same game and
+    horizon, are attached as they are, and no probe runs.
     """
     device = resolve_device(device)
     dynamics = game.dynamics
@@ -265,21 +305,11 @@ def build_parametric_game(
     )
     if not time_structure:
         return pg
-    structure = build_time_structure(game, horizon)
-    if len(structure.permutation) != pg.mcp.unconstrained_dimension:
+    if probes is None:
+        probes = probe_game(pg, game, horizon, affine_bands=affine_bands)
+    if probes.structure is None:
         return pg
-    with probes_on_cpu():
-        if validate_time_structure(pg, structure) >= 1e-8:
-            return pg
-        rows = build_row_time_structure(pg, structure)
-        if rows is not None:
-            structure = structure._replace(row_permutation=rows[0], rows_per_block=rows[1])
-        mcp = dataclasses.replace(pg.mcp, time_structure=structure)
-        ab = None
-        if affine_bands and structure.row_permutation is not None:
-            from ..kernels.block_tridiag import build_affine_bands
-
-            ab = build_affine_bands(mcp, structure, sum(pg.dims.theta))
-    if ab is not None:
-        mcp = dataclasses.replace(mcp, affine_bands=ab.to(device=device))
+    mcp = dataclasses.replace(pg.mcp, time_structure=probes.structure)
+    if probes.affine_bands is not None:
+        mcp = dataclasses.replace(mcp, affine_bands=probes.affine_bands.to(device=device))
     return dataclasses.replace(pg, mcp=mcp)

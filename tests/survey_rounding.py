@@ -1,6 +1,8 @@
-"""Rounding surveys behind two of the port's cross-package tolerances, and
-behind the double-word QP row's uncertified lanes, on the CPU (not
-collected by pytest; run from the repository root).
+"""Rounding surveys behind two of the port's cross-package tolerances,
+behind the double-word QP row's uncertified lanes, and behind the dry run's
+data-parallel check (not collected by pytest; run from the repository
+root). All but dp-lanes run both packages on the CPU; dp-lanes runs the
+port alone, without JAX, on the CPU or on the card.
 
   python tests/survey_rounding.py cr-lanes TIER FIRST LAST
       Per-lane float32 status and outer iterations of the lane change
@@ -31,6 +33,20 @@ collected by pytest; run from the repository root).
       refinement 0, tol 1e-4, caps 25, polish) in float32 and float64, in
       both packages: per-lane status and outer iterations, and in float64
       the max|Δx| between them.
+
+  python tests/survey_rounding.py dp-lanes B DTYPE [DEVICE]
+      The dry run's data-parallel training step (``selection/dp.py``) on
+      its batch of B lanes (``dp_inputs``) in DTYPE ("float32",
+      "float64") on DEVICE ("cpu", the default, or "cuda"):
+      ``dp_training_step`` on each lane alone, as each of B ranks does with
+      its shard of one, and on the whole batch, as one rank does. Per lane:
+      status and outer iterations alone and in the batch, max|Δx| between
+      the two solutions and, below float64, max|Δx| of the lane in the
+      batch against the same batch in float64 (its rounding floor). Then
+      what the dp check compares: the mean over the B shards of the loss
+      and of the new weights (the all-reduce averages the gradients before
+      the update: the same up to one rounding) against the whole batch's,
+      in DTYPE and, below float64, in float64.
 """
 
 import functools
@@ -43,14 +59,9 @@ if "xla_force_host_platform_device_count" not in _flags:
     os.environ["XLA_FLAGS"] = (_flags + " --xla_force_host_platform_device_count=8").strip()
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-jax.config.update("jax_enable_x64", True)
-
-from mcp_tpu.bench import lane_change as jlc  # noqa: E402
 from mcp_tpu_torch import SolverOptions, solve_batch  # noqa: E402
 from mcp_tpu_torch.bench import lane_change as tlc  # noqa: E402
 
@@ -58,7 +69,20 @@ HEADLINE = dict(tol=1e-4, algorithm="ip", polish=True, retry=0, refinement_steps
                 tightening_rate=0.02)
 
 
+def _jax():
+    """jax (float64 on), jax.numpy and the JAX package's lane-change bench,
+    imported by the surveys that run the JAX package only."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_enable_x64", True)
+    from mcp_tpu.bench import lane_change as jlc
+
+    return jax, jnp, jlc
+
+
 def cr_lanes(tier, first, last):
+    jax, jnp, jlc = _jax()
     from mcp_tpu.parallel.batch import solve_batch as jax_solve_batch
     from mcp_tpu.solver import SolverOptions as JaxOptions
 
@@ -83,6 +107,8 @@ def cr_lanes(tier, first, last):
 
 def t64():
     from types import SimpleNamespace
+
+    jax, jnp, jlc = _jax()
 
     from mcp_tpu import solve as jax_solve
     from mcp_tpu.bench.harness import true_kkt_errors
@@ -140,6 +166,7 @@ def t64():
 
 
 def dw_lanes(seeds):
+    _, jnp, _ = _jax()
     from mcp_tpu.bench import qp_dw as jdw
     from mcp_tpu_torch.bench import qp, qp_dw
 
@@ -163,6 +190,7 @@ def dw_lanes(seeds):
 
 
 def gmres_qp(seed, B):
+    jax, jnp, _ = _jax()
     from mcp_tpu.bench import qp as jqp
     from mcp_tpu.parallel.batch import solve_batch as jax_solve_batch
     from mcp_tpu.solver import SolverOptions as JaxOptions
@@ -185,6 +213,60 @@ def gmres_qp(seed, B):
             print(f"  max|dx| {float(np.abs(got.x.numpy() - np.asarray(want.x)).max()):.3e}")
 
 
+def dp_lanes(B, dtype, device):
+    from mcp_tpu_torch.convert import mlp_params_from_numpy
+    from mcp_tpu_torch.selection import dp
+
+    inputs = dp.dp_inputs(B)
+    runner = dp.dp_runner(device)
+
+    class Recording:
+        """The dp runner, keeping each solve's result."""
+
+        def __init__(self):
+            self.results = []
+
+        def __getattr__(self, name):
+            return getattr(runner, name)
+
+        def solve(self, *args, **kw):
+            bs = runner.solve(*args, **kw)
+            self.results.append(bs.result)
+            return bs
+
+    def step(dt, rows):
+        model = mlp_params_from_numpy(inputs["weights"], inputs["biases"], device=device,
+                                      dtype=dt)
+        data = [torch.as_tensor(inputs[k][rows]).to(device=device, dtype=dt)
+                for k in ("histories", "initial_states", "goals")]
+        rec = Recording()
+        loss, params, _ = dp.dp_training_step(rec, model, *data)
+        return float(loss), [p.double().cpu() for p in params], rec.results[0]
+
+    def run(dt):
+        lanes = [step(dt, slice(i, i + 1)) for i in range(B)]
+        whole = step(dt, slice(None))
+        mean_w = [sum(ws) / B for ws in zip(*(lane[1] for lane in lanes))]
+        print(f"{dt}: dp (mean of {B} shards) against one rank: |Δloss| "
+              f"{abs(sum(lane[0] for lane in lanes) / B - whole[0]):.3e}, max|Δw| "
+              f"{max(float((a - b).abs().max()) for a, b in zip(mean_w, whole[1])):.3e}",
+              flush=True)
+        return lanes, whole
+
+    x = lambda res: res.x.detach().double().cpu()
+    dt = getattr(torch, dtype)
+    lanes, whole = run(dt)
+    wide = None if dt == torch.float64 else x(run(torch.float64)[1][2])
+    r = whole[2]
+    for i, (_, _, alone) in enumerate(lanes):
+        line = (f"lane {i}: status {int(alone.status[0])} / {int(r.status[i])}, outer "
+                f"{int(alone.outer_iters[0])} / {int(r.outer_iters[i])} (alone / in the "
+                f"batch), max|Δx| {float((x(alone)[0] - x(r)[i]).abs().max()):.3e}")
+        if wide is not None:
+            line += f", against float64 in the batch {float((x(r)[i] - wide[i]).abs().max()):.3e}"
+        print(line, flush=True)
+
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
     if sys.argv[1] == "cr-lanes":
@@ -195,5 +277,7 @@ if __name__ == "__main__":
         dw_lanes([int(a) for a in sys.argv[2:]])
     elif sys.argv[1] == "gmres-qp":
         gmres_qp(int(sys.argv[2]), int(sys.argv[3]))
+    elif sys.argv[1] == "dp-lanes":
+        dp_lanes(int(sys.argv[2]), sys.argv[3], sys.argv[4] if len(sys.argv) > 4 else "cpu")
     else:
         raise SystemExit(__doc__)

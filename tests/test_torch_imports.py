@@ -381,3 +381,29 @@ def test_cli_without_matplotlib_prints_its_numbers_then_one_line(monkeypatch, tm
     assert json.loads(lines[-2]) == json.loads((tmp_path / "time.json").read_text())
     assert lines[-1] == f"{out} not written: matplotlib is not installed"
     assert not out.exists()
+
+
+def test_staged_step_modules_are_scanned():
+    """The staged training step's CLIs are among the files the import scan
+    covers."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("bench/flagships.py", "scripts/bench_train_step.py", "scripts/precompile.py"):
+        assert f"mcp_tpu_torch/{rel}" in names
+
+
+@pytest.mark.parametrize("cli,flag", [("bench_train_step", "--no-staged"),
+                                      ("precompile", "--suites")])
+def test_training_clis_import_and_show_help_without_jax(cli, flag, monkeypatch, capsys):
+    """Each CLI of the staged training step imports afresh and prints its
+    ``--help`` with jax, orbax and the JAX package blocked."""
+    import importlib
+    import sys
+
+    for name in ("jax", "jaxlib", "orbax", "orbax.checkpoint", "mcp_tpu"):
+        monkeypatch.setitem(sys.modules, name, None)
+    monkeypatch.delitem(sys.modules, f"mcp_tpu_torch.scripts.{cli}", raising=False)
+    module = importlib.import_module(f"mcp_tpu_torch.scripts.{cli}")
+    with pytest.raises(SystemExit) as exit_:
+        module.main(["--help"])
+    assert exit_.value.code == 0
+    assert flag in capsys.readouterr().out
