@@ -1,0 +1,8 @@
+"""K2's share of its roofline: Σ bound / Σ device time over its launches,
+the bound of each from the frozen counts at the cell's shape."""
+
+from perfbench.roofline import kernel_roofline
+
+
+def read(trace, ctx):
+    return kernel_roofline("K2", trace, ctx)
