@@ -43,7 +43,6 @@ from typing import Optional
 
 import torch
 from torch.func import jacfwd, jvp, vjp, vmap
-from torch.profiler import record_function
 
 from .kernels.block_tridiag import (
     _indices,
@@ -54,12 +53,13 @@ from .kernels.block_tridiag import (
 from .linalg import assemble_dense_jacobian
 from .mcp import PrimalDualMCP
 from .solver import BANDED_SOLVERS, SolverOptions, default_initialization, ip_solve
+from .telemetry import IFT_BANDS, IFT_SOLVE, span
 from .types import SolveResult
 
 Tensor = torch.Tensor
 
-SPAN_IFT_BANDS = "mcp.ift_bands"
-SPAN_IFT_SOLVE = "mcp.ift_solve"
+SPAN_IFT_BANDS = IFT_BANDS
+SPAN_IFT_SOLVE = IFT_SOLVE
 
 _MISSING = (
     "Missing sensitivities. Set `compute_sensitivities=True` when "
@@ -116,7 +116,7 @@ def _banded_operators(mcp, options, x, y, s, theta, tridiag_solver=None):
     T, b, mt = ts.num_blocks, ts.block_size, ts.rows_per_block
     perm, rperm, inv, rinv = _indices(ts, x.device)
     ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=x.dtype)
-    with record_function(SPAN_IFT_BANDS):
+    with span(SPAN_IFT_BANDS):
         _, _, diag_b, lower_b, upper_b, Gy_b, Hx_b = gh_banded_fast(
             mcp, ts, x, y, theta, affine_bands=ab
         )
@@ -160,7 +160,7 @@ def _ift_operators(mcp: PrimalDualMCP, options: SolverOptions, x, y, s, theta,
     if (sens == "tridiag" and mcp.assume_hy_zero and ts is not None
             and ts.row_permutation is not None):
         return _banded_operators(mcp, options, x, y, s, theta, tridiag_solver)
-    with record_function(SPAN_IFT_BANDS):
+    with span(SPAN_IFT_BANDS):
         Gx, Gy, Hx, Hy = vmap(mcp.gh_jacobians)(x, y, theta)
     if sens in ("condensed", "tridiag") and mcp.assume_hy_zero:
         A = Gx - (Gy * (y / s)[:, None, :]) @ Hx
@@ -231,7 +231,7 @@ class _IFTSolve(torch.autograd.Function):
                           for g, v in ((gx, x), (gy, y), (gs, s))], dim=1)
         _, transpose_solve = _ift_operators(ctx.mcp, ctx.options, x, y, s, theta,
                                             ctx.tridiag_solver, ctx.newton_solver)
-        with record_function(SPAN_IFT_SOLVE):
+        with span(SPAN_IFT_SOLVE):
             w = transpose_solve(zbar)
         _, F_vjp = vjp(_F_of_theta(ctx.mcp, x, y, s, eps), theta)
         return None, None, None, None, F_vjp(w)[0], None, None, None
@@ -248,7 +248,7 @@ class _IFTSolve(torch.autograd.Function):
             _, F_dot = jvp(_F_of_theta(ctx.mcp, x, y, s, eps), (theta,), (theta_dot,))
             solve, _ = _ift_operators(ctx.mcp, ctx.options, x, y, s, theta,
                                       ctx.tridiag_solver, ctx.newton_solver)
-            with record_function(SPAN_IFT_SOLVE):
+            with span(SPAN_IFT_SOLVE):
                 z = solve(F_dot)
         return z[:, :n], z[:, n : n + m], z[:, n + m :], None, None, None, None
 

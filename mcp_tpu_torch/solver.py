@@ -26,7 +26,8 @@ to every lane and keeps the new carry only where that lane's condition was
 true. This port writes exactly that over (B, ·) tensors: each loop runs
 while its live mask has a lane, and a lane outside the mask is frozen with
 ``torch.where`` (never by multiplying by 0: 0·NaN = NaN). Each loop test is
-one host sync (a ``.any()`` read).
+one host sync (a ``.any()`` read; while a profiler records, the count of
+live lanes that ``telemetry`` keeps).
 
 Linear-solver tiers: the banded tiers of trajectory games (``BANDED_SOLVERS``:
 ``"tridiag"`` and ``"tridiag_cr"``, the plain LU block-Thomas and cyclic
@@ -71,8 +72,8 @@ from typing import Optional
 
 import torch
 from torch.func import vmap
-from torch.profiler import record_function
 
+from . import telemetry
 from ._device import matmul_precision
 from .kernels.block_tridiag import (
     banded_jac_mv,
@@ -85,6 +86,7 @@ from .kernels.linesearch import _candidate_tensor, linesearch_update
 from .kernels.thomas_dispatch import PALLAS_TIERS, auto_thomas_solve, pallas_thomas_solve
 from .linalg import NEWTON_STEPS, factored_newton_solver, newton_step_tridiag
 from .mcp import PrimalDualMCP
+from .telemetry import span
 from .types import FAILED, SOLVED, SolveResult
 
 # A float32 matmul on the card may run in TF32 (about three decimal digits);
@@ -94,13 +96,17 @@ from .types import FAILED, SOLVED, SolveResult
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# Profiler span names (torch.profiler.record_function; near-free when no
-# profiler runs): chip_smoke.py's profile phase splits the host time of an
-# iteration by them.
-SPAN_RESIDUAL = "mcp.residual_bands"
-SPAN_NEWTON = "mcp.newton_solve"
-SPAN_LINESEARCH = "mcp.linesearch"
-SPAN_LOOP_TEST = "mcp.loop_test"
+# Span names (``telemetry.span``; on a CPU host with torch 2.13 a span costs
+# ~0.6 µs with no profiler recording, against ~10 µs for a bare
+# record_function, and ~14.5 µs while one records, against record_function's
+# ~12 µs). chip_smoke.py's profile phases and the benchmark's readers split
+# the host time of a solve by them.
+SPAN_RESIDUAL = telemetry.RESIDUAL
+SPAN_NEWTON = telemetry.NEWTON
+SPAN_LINESEARCH = telemetry.LINESEARCH
+SPAN_LOOP_TEST = telemetry.LOOP_TEST
+SPAN_SETUP = telemetry.SETUP
+SPAN_POLISH = telemetry.POLISH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -438,12 +444,12 @@ def _make_step(mcp, options, theta, dtype, reg, lin=None, tridiag_solver=None,
         tsolve = _tridiag_algorithm(options, tridiag_solver)
 
         def step(x, y, s, eps):
-            with record_function(SPAN_RESIDUAL):
+            with span(SPAN_RESIDUAL):
                 g, h, diag_b, lower_b, upper_b, Gy_b, Hx_b = gh_banded_fast(
                     mcp, st, x, y, theta, affine_bands=ab
                 )
             rG, rH, rC = g, h - s, s * y - eps[:, None]
-            with record_function(SPAN_NEWTON):
+            with span(SPAN_NEWTON):
                 dx, dy, ds = banded_newton_step_compressed(
                     diag_b, lower_b, upper_b, Gy_b, Hx_b, y, s, rG, rH, rC, reg, st,
                     algorithm=tsolve,
@@ -463,23 +469,37 @@ def _make_step(mcp, options, theta, dtype, reg, lin=None, tridiag_solver=None,
         newton = NEWTON_STEPS[options.linear_solver]
 
     def step(x, y, s, eps):
-        with record_function(SPAN_RESIDUAL):
+        with span(SPAN_RESIDUAL):
             g, h, Gx, Gy, Hx, Hy = lin(x, y)
         rG, rH, rC = g, h - s, s * y - eps[:, None]
-        with record_function(SPAN_NEWTON):
+        with span(SPAN_NEWTON):
             dx, dy, ds = newton(Gx, Gy, Hx, Hy, y, s, rG, rH, rC, reg)
         return rG, rH, rC, dx, dy, ds
 
     return step
 
 
-def _any(live: torch.Tensor) -> bool:
-    """A loop test: one host sync."""
-    with record_function(SPAN_LOOP_TEST):
-        return bool(live.any())
+def _any(live: torch.Tensor, guards: Optional[str] = None) -> bool:
+    """A loop test: one host sync. ``guards`` names the step that the test
+    guards over the whole batch: ``SPAN_NEWTON`` in the annealed inner and
+    the Mehrotra loop, ``SPAN_POLISH`` in the polish, None at the annealed
+    outer test. While a profiler records, such a test reads the number of
+    live lanes instead of ``any`` (still one sync) and, when the step runs,
+    adds it to ``telemetry.LIVE_LANE_STEPS``, the batch to ``LANE_STEPS`` and,
+    in the polish, 1 to ``POLISH_STEPS``."""
+    with span(SPAN_LOOP_TEST):
+        if guards is None or not telemetry.recording():
+            return bool(live.any())
+        n = int(live.sum())
+        if n:
+            telemetry.count(telemetry.LIVE_LANE_STEPS, n)
+            telemetry.count(telemetry.LANE_STEPS, live.shape[0])
+            if guards == SPAN_POLISH:
+                telemetry.count(telemetry.POLISH_STEPS)
+        return n > 0
 
 
-@record_function(SPAN_LINESEARCH)
+@span(SPAN_LINESEARCH)
 def _unfused_step(options, x, dx, s, ds, y, dy):
     """The unfused linesearch and update: (x', s', y', step_failed, (lin_failed,
     ls_failed)), a lane's step failing on a non-finite direction or on the
@@ -530,8 +550,6 @@ def _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None,
     dtype, device = x0.dtype, x0.device
     tol = options.tol
     reg = options.regularization if options.regularization is not None else tol
-    step = _make_step(mcp, options, theta, dtype, reg, tridiag_solver=tridiag_solver,
-                      newton_solver=newton_solver)
     if options.fused_linesearch and options.verbose:
         warnings.warn(
             "fused_linesearch=True is incompatible with verbose=True (the "
@@ -546,12 +564,26 @@ def _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None,
     ) and not options.verbose
     candidates = linesearch_candidates(options.decay, options.min_stepsize)
 
+    def outer_cond(kkt, eps, outer):
+        live = (kkt > tol) & (eps > tol) & (outer < options.max_outer_iters)
+        return live if gate is None else live & gate
+
+    with span(SPAN_SETUP):
+        step = _make_step(mcp, options, theta, dtype, reg, tridiag_solver=tridiag_solver,
+                          newton_solver=newton_solver)
+        x, y, s = x0, y0, s0
+        kkt = torch.full((B,), math.inf, dtype=dtype, device=device)
+        eps = torch.ones((B,), dtype=dtype, device=device)
+        outer = torch.ones((B,), dtype=torch.int32, device=device)
+        failed = torch.zeros((B,), dtype=torch.bool, device=device)
+        outer_live = outer_cond(kkt, eps, outer)
+
     def inner_body(x, y, s, eps):
         """(x', y', s', F_norm, step_failed, why) of every lane; why is the
         unfused step's (lin_failed, ls_failed), None after the fused kernel."""
         rG, rH, rC, dx, dy, ds = step(x, y, s, eps)
         if use_fused_ls:
-            with record_function(SPAN_LINESEARCH):
+            with span(SPAN_LINESEARCH):
                 x, s, y, F_norm, failed = linesearch_update(
                     x, dx, s, ds, y, dy, rG, rH, rC,
                     tau=options.tau, candidates=candidates,
@@ -561,24 +593,13 @@ def _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None,
         return x, y, s, _kkt(rG, rH, rC), failed, why
 
     where = torch.where
-    x, y, s = x0, y0, s0
-    kkt = torch.full((B,), math.inf, dtype=dtype, device=device)
-    eps = torch.ones((B,), dtype=dtype, device=device)
-    outer = torch.ones((B,), dtype=torch.int32, device=device)
-    failed = torch.zeros((B,), dtype=torch.bool, device=device)
-
-    def outer_cond(kkt, eps, outer):
-        live = (kkt > tol) & (eps > tol) & (outer < options.max_outer_iters)
-        return live if gate is None else live & gate
-
-    outer_live = outer_cond(kkt, eps, outer)
     while _any(outer_live):
         # Inner loop from the outer carry; status resets each outer step.
         xi, yi, si, ki = x, y, s, kkt
         inner = torch.ones((B,), dtype=torch.int32, device=device)
         ifailed = torch.zeros((B,), dtype=torch.bool, device=device)
         live = outer_live & (ki > eps) & (inner < options.max_inner_iters) & ~ifailed
-        while _any(live):
+        while _any(live, guards=SPAN_NEWTON):
             xn, yn, sn, F_norm, step_failed, why = inner_body(xi, yi, si, eps)
             if options.verbose:  # the unfused path: why is set
                 _report_failed(live & step_failed,
@@ -606,9 +627,10 @@ def _ip_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None,
     failed = failed | (outer == options.max_outer_iters)
 
     if options.polish:
-        x, y, s, kkt, failed = _terminal_polish(
-            mcp, options, step, theta, x, y, s, failed, gate=gate
-        )
+        with span(SPAN_POLISH):
+            x, y, s, kkt, failed = _terminal_polish(
+                mcp, options, step, theta, x, y, s, failed, gate=gate
+            )
     status = where(failed, FAILED, SOLVED).to(torch.int32)
     if gate is not None:
         # A gated-off lane never ran: it reports FAILED, so its untouched
@@ -630,7 +652,7 @@ def _terminal_polish(mcp, options, step, theta, x, y, s, failed, gate=None):
     eps_p = torch.full((B,), 0.5 * tol, dtype=x.dtype, device=x.device)
 
     def true_kkt_at(x, y, s):
-        with record_function(SPAN_RESIDUAL), matmul_precision("highest"):
+        with span(SPAN_RESIDUAL), matmul_precision("highest"):
             g, h = mcp.gh_batched(x, y, theta)
             return _kkt(g, h - s, s * y)
 
@@ -643,7 +665,7 @@ def _terminal_polish(mcp, options, step, theta, x, y, s, failed, gate=None):
     iters = 0
     p_failed = torch.zeros_like(failed)
     live = polish_live(tk, p_failed)
-    while iters < options.max_inner_iters and _any(live):
+    while iters < options.max_inner_iters and _any(live, guards=SPAN_POLISH):
         _, _, _, dx, dy, ds = step(x, y, s, eps_p)
         xn, sn, yn, step_failed, _ = _unfused_step(options, x, dx, s, ds, y, dy)
         tkn = true_kkt_at(xn, yn, sn)
@@ -685,26 +707,38 @@ def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None) -
     st = mcp.time_structure
     tridiag_family = options.linear_solver in BANDED_SOLVERS
     banded = tridiag_family and st.row_permutation is not None
-    if tridiag_family:
-        tsolve = _tridiag_algorithm(options, tridiag_solver)
-    if banded:
-        ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=dtype)
-        lin = None
-    else:
-        lin = _make_linearizer(mcp, theta, dtype)
-        if tridiag_family:
-            # No row time structure: the dense Schur system, permuted to
-            # time-major bands, solved afresh per right-hand side.
-            make_solver = lambda Gx, Gy, Hx, Hy, y, s, reg: (
-                lambda bG, bH, bC: newton_step_tridiag(
-                    Gx, Gy, Hx, Hy, y, s, bG, bH, bC, reg, structure=st, algorithm=tsolve))
-        elif options.linear_solver == "gmres":
-            make_solver = functools.partial(factored_newton_solver("gmres"),
-                                            gmres_options=_gmres_options(options))
-        else:
-            make_solver = factored_newton_solver(options.linear_solver)
     refine_steps = int(options.refinement_steps)
     where = torch.where
+
+    def cond(kkt, iters, failed):
+        return (kkt > tol) & (iters < options.max_outer_iters) & ~failed
+
+    with span(SPAN_SETUP):
+        if tridiag_family:
+            tsolve = _tridiag_algorithm(options, tridiag_solver)
+        if banded:
+            ab = None if mcp.affine_bands is None else mcp.affine_bands.to(dtype=dtype)
+            lin = None
+        else:
+            lin = _make_linearizer(mcp, theta, dtype)
+            if tridiag_family:
+                # No row time structure: the dense Schur system, permuted to
+                # time-major bands, solved afresh per right-hand side.
+                make_solver = lambda Gx, Gy, Hx, Hy, y, s, reg: (
+                    lambda bG, bH, bC: newton_step_tridiag(
+                        Gx, Gy, Hx, Hy, y, s, bG, bH, bC, reg, structure=st,
+                        algorithm=tsolve))
+            elif options.linear_solver == "gmres":
+                make_solver = functools.partial(factored_newton_solver("gmres"),
+                                                gmres_options=_gmres_options(options))
+            else:
+                make_solver = factored_newton_solver(options.linear_solver)
+        x, y, s = x0, y0, s0
+        kkt = torch.full((B,), math.inf, dtype=dtype, device=device)
+        iters = torch.ones((B,), dtype=torch.int32, device=device)
+        failed = torch.zeros((B,), dtype=torch.bool, device=device)
+        mu = torch.ones((B,), dtype=dtype, device=device)
+        live = cond(kkt, iters, failed)
 
     def mv(J, v):
         return (J @ v[..., None])[..., 0]
@@ -729,10 +763,10 @@ def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None) -
         )
 
     def body(x, y, s):
-        with record_function(SPAN_RESIDUAL):
+        with span(SPAN_RESIDUAL):
             g, h, newton = linearize(x, y)
         rG, rH = g, h - s
-        with record_function(SPAN_NEWTON):
+        with span(SPAN_NEWTON):
             solve_f, jac_mv = newton(s)
 
             def solve_refined(bG, bH, bC):
@@ -776,17 +810,7 @@ def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None) -
         F_norm = torch.maximum(feas, _absmax(comp))
         return x, y, s, F_norm, lin_failed, mu
 
-    x, y, s = x0, y0, s0
-    kkt = torch.full((B,), math.inf, dtype=dtype, device=device)
-    iters = torch.ones((B,), dtype=torch.int32, device=device)
-    failed = torch.zeros((B,), dtype=torch.bool, device=device)
-    mu = torch.ones((B,), dtype=dtype, device=device)
-
-    def cond(kkt, iters, failed):
-        return (kkt > tol) & (iters < options.max_outer_iters) & ~failed
-
-    live = cond(kkt, iters, failed)
-    while _any(live):
+    while _any(live, guards=SPAN_NEWTON):
         xn, yn, sn, F_norm, step_failed, mu_n = body(x, y, s)
         if options.verbose:
             _report_failed(live & step_failed,
@@ -804,11 +828,12 @@ def _mehrotra_solve_body(mcp, options, theta, x0, y0, s0, tridiag_solver=None) -
         # Mehrotra's own exit tests the pre-step residual; the polish drives
         # the residual at the returned iterate to ≤ tol, with the tier's
         # direct (unfactored) Newton step.
-        step = _make_step(mcp, options, theta, dtype, reg, lin=lin,
-                          tridiag_solver=tridiag_solver)
-        x, y, s, kkt, failed = _terminal_polish(
-            mcp, options, step, theta, x, y, s, failed
-        )
+        with span(SPAN_POLISH):
+            step = _make_step(mcp, options, theta, dtype, reg, lin=lin,
+                              tridiag_solver=tridiag_solver)
+            x, y, s, kkt, failed = _terminal_polish(
+                mcp, options, step, theta, x, y, s, failed
+            )
     status = where(failed, FAILED, SOLVED).to(torch.int32)
     return SolveResult(
         x=x, y=y, s=s, kkt_error=kkt, epsilon=mu, outer_iters=iters, status=status

@@ -1,5 +1,2 @@
-"""Utility modules: profiling and timing helpers, double-word arithmetic."""
-
-from .profiling import PhaseTimer, time_compiled, trace
-
-__all__ = ["PhaseTimer", "time_compiled", "trace"]
+"""Utility modules: double-word arithmetic (``twofloat``) and the device
+helpers (``devices``). The program's tracing is ``mcp_tpu_torch.telemetry``."""

@@ -218,16 +218,15 @@ def test_benchmark_sequential_matches_jax():
 
 
 def test_profiling_helpers(tmp_path):
-    from mcp_tpu_torch.utils import PhaseTimer, time_compiled, trace
+    """``telemetry.trace`` writes a trace that holds the program's spans, and
+    its table counts them while it records."""
+    from mcp_tpu_torch import telemetry
 
-    timer = PhaseTimer()
-    for _ in range(3):
-        with timer.phase("solve"):
-            torch.ones(4).sum()
-    summary = timer.summary()["solve"]
-    assert summary["calls"] == 3 and summary["steady_s"] <= summary["total_s"]
-    times = time_compiled(lambda a: a @ a, torch.eye(8), repeats=2)
-    assert set(times) == {"first_s", "best_s", "mean_s"} and times["best_s"] >= 0
-    with trace(str(tmp_path)):
-        torch.eye(8) @ torch.eye(8)
-    assert any(tmp_path.iterdir())
+    telemetry.reset()
+    with telemetry.trace(str(tmp_path)):
+        with telemetry.span(telemetry.SETUP):
+            torch.eye(8) @ torch.eye(8)
+    files = [p for p in tmp_path.rglob("*") if p.is_file()]
+    assert files and any(telemetry.SETUP in p.read_text(errors="ignore") for p in files)
+    assert telemetry.snapshot()["spans"][telemetry.SETUP]["count"] == 1
+    telemetry.reset()
